@@ -1,0 +1,96 @@
+"""Weights between the JAX package's Flax pytrees and PyTorch state_dicts.
+
+``state_dict_from_jax`` is the inverse of the JAX package's
+``utils/torch_port.torch_state_dict_to_flax``: it takes the ``params`` and
+``batch_stats`` pytrees (numpy leaves) of a ``DBTextModel`` and returns a
+state_dict with the reference's key names, so a ``.pth`` saved from it loads
+into both packages. Layouts:
+
+- Conv2d kernel: Flax HWIO -> torch OIHW.
+- ConvTranspose2d kernel: Flax (kh, kw, in, out) -> torch (in, out, kh, kw),
+  spatially flipped back (torch's transposed conv is the conv adjoint, Flax's
+  ``transpose_kernel=False`` form is a fractionally-strided conv).
+- BatchNorm scale/bias -> weight/bias, mean/var -> running_mean/running_var,
+  plus ``num_batches_tracked`` = 0.
+
+Both head layouts convert: ``DBHead`` (``binarize``/``thresh`` branches, keys
+``segmentation_head.binarize.0.weight`` ...) and ``FusedDBHead`` (keys
+``segmentation_head.conv1.weight``, ``segmentation_head.binarize_deconv1``
+...).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+# Flax layer name -> index in each DBHead branch's nn.Sequential
+_HEAD_SEQ_INDEX = {"conv1": "0", "bn1": "1", "deconv1": "3", "bn2": "4",
+                   "deconv2": "6"}
+_LAYER_RE = re.compile(r"^layer(\d+)_(\d+)$")
+_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+         "var": "running_var"}
+
+
+def _module_key(path: list[str]) -> str:
+    top, rest = path[0], list(path[1:])
+    out: list[str] = []
+    if top == "backbone":
+        for name in rest:
+            m = _LAYER_RE.match(name)
+            if m:
+                out += [f"layer{m.group(1)}", m.group(2)]
+            elif name == "downsample_conv":
+                out += ["downsample", "0"]
+            elif name == "downsample_bn":
+                out += ["downsample", "1"]
+            else:
+                out.append(name)
+    elif top == "segmentation_body":
+        out = {"conv": ["conv", "0"], "conv_bn": ["conv", "1"]}.get(
+            "/".join(rest), rest)
+    elif top == "segmentation_head":
+        if rest[0] in ("binarize", "thresh") and len(rest) == 2:
+            out = [rest[0], _HEAD_SEQ_INDEX[rest[1]]]
+        else:
+            out = rest
+    else:
+        raise ValueError(f"unknown subtree {top!r}")
+    return ".".join([top] + out)
+
+
+def _leaves(tree: Mapping[str, Any], path=()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, path + (key,))
+        else:
+            yield list(path), key, np.asarray(value)
+
+
+def _kernel(value: np.ndarray, deconv: bool) -> np.ndarray:
+    if deconv:   # (kh, kw, in, out) -> (in, out, kh, kw), flip kh and kw
+        return np.transpose(value, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+    return np.transpose(value, (3, 2, 0, 1))   # HWIO -> OIHW
+
+
+def state_dict_from_jax(params: Mapping[str, Any],
+                        batch_stats: Mapping[str, Any]) -> dict:
+    """Flax ``params``/``batch_stats`` of a ``DBTextModel`` -> torch
+    state_dict (CPU tensors) with the reference's key names."""
+    sd: dict = {}
+    for tree in (params, batch_stats):
+        for path, leaf, value in _leaves(tree):
+            module = _module_key(path)
+            if leaf == "kernel":
+                value = _kernel(value, deconv="deconv" in path[-1])
+                name = "weight"
+            else:
+                name = _LEAF[leaf]
+            if leaf == "scale":
+                sd[f"{module}.num_batches_tracked"] = torch.tensor(0)
+            sd[f"{module}.{name}"] = torch.from_numpy(
+                np.ascontiguousarray(value).copy())
+    return sd
