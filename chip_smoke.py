@@ -7,19 +7,32 @@ Run from the repository root on a machine with a CUDA GPU::
 
 Phases, one output line each (or more), stopping at the first failure:
 
-1. build   - compile the CUDA kernels (csrc/cc.cu, nvcc sm_90a) and the host
-             geometry library, in parallel.
+1. build   - compile the CUDA kernels (csrc/cc.cu, nvcc sm_90a), the host
+             geometry library and the Triton kernels K1 and K2
+             (ops/db_step_triton.py), in parallel.
 2. kernels - hold each kernel K3-K6 against its plain PyTorch version on the
              card at the serving path's shapes (8 prob maps of 640x640,
-             K = 1000 slots), and time both.
+             K = 1000 slots), and K1, K2 forward and K2 backward at the
+             training shapes (P and T of 4x1x640x640, the backward's
+             gradient at the element stride of the NHWC output's last
+             channel); time each and its plain version.
 3. serve   - serve one batch of 8 synthetic 640x480 images through the
              port's handler in box mode: resnet18 + FPN (inner 256) +
              FusedDBHead, fp32, weights drawn from a seed and loaded from a
              .pth with the reference's key names. Every kernel's launch
              counter must rise. Then time the batch.
-4. check   - device boxes against the host rect-mode SegDetectorRepresenter
-             on synthetic scenes, and the model on the card against the same
-             model on the CPU.
+4. train   - the training configuration of the JAX package's defaults:
+             resnet18 + FPN (inner 256) + DBHead in train mode, 640², batch
+             4, fp32 with TF32 off, true per-pixel OHEM, Adam at lr 0.005.
+             Twelve steps of Trainer.train_epoch on one synthetic batch
+             (numpy scenes, GT maps in the compact layout); K2 forward and
+             backward must launch once a step and the loss must fall. Then
+             Trainer.eval_epoch in rect mode on two test images: K3-K6 must
+             launch and P, R, F lie in [0, 1].
+5. check   - device boxes against the host rect-mode SegDetectorRepresenter
+             on synthetic scenes, the model on the card against the same
+             model on the CPU, and one train step on the card against the
+             same step on the CPU.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -41,11 +54,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from db_text_minimal_tpu_torch.config import default_config
+from db_text_minimal_tpu_torch.data.scenes import text_batch
 from db_text_minimal_tpu_torch.models import DBTextModel
 from db_text_minimal_tpu_torch.ops import cc, geometry
+from db_text_minimal_tpu_torch.ops import db_step as D
 from db_text_minimal_tpu_torch.postprocess import (DeviceBoxRepresenter,
                                                    SegDetectorRepresenter)
 from db_text_minimal_tpu_torch.serve.handler import DBTextDetectionHandler
+from db_text_minimal_tpu_torch.train import trainer as T
 
 SEED = 0
 N, SIZE, K = 8, 640, 1000
@@ -53,6 +70,9 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit rate
 SRC = "db_text_minimal_tpu_torch/csrc/cc.cu"
 JAX_CC = "db_text_minimal_tpu/ops/pallas/cc.py"
+TRITON_SRC = "db_text_minimal_tpu_torch/ops/db_step_triton.py"
+JAX_DB_STEP = "db_text_minimal_tpu/ops/pallas/db_step.py"
+TRAIN_BATCH, TRAIN_STEPS, LR = 4, 12, 0.005
 
 
 def log(msg: str) -> None:
@@ -73,6 +93,28 @@ def timed(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_kernels(fn, reps: int) -> tuple[float, dict]:
+    """Device time of ``fn`` from torch.profiler: the card's activity
+    (kernels, copies, fills) per call in ms, and ms per call by kernel
+    name, over ``reps`` calls after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / reps)
+    return sum(by_name.values()), by_name
 
 
 def draw_rect(prob, cx, cy, w, h, deg, val):
@@ -114,14 +156,41 @@ def kernel_scene(i: int, size: int = SIZE) -> np.ndarray:
     return p
 
 
+def db_step_maps():
+    """P and T of the training shapes from a seed, with k(P - T) at its
+    ends, +50 and -50, and P at the bitmap's threshold in the first
+    pixels."""
+    g = torch.Generator().manual_seed(SEED)
+    p = torch.rand((TRAIN_BATCH, 1, SIZE, SIZE), generator=g)
+    t = torch.rand((TRAIN_BATCH, 1, SIZE, SIZE), generator=g)
+    p.view(-1)[:4] = torch.tensor([1.0, 0.0, 0.3, 0.30000001])
+    t.view(-1)[:4] = torch.tensor([0.0, 1.0, 0.3, 0.3])
+    grad = torch.randn((TRAIN_BATCH, SIZE, SIZE, 3), generator=g)
+    dev = torch.device("cuda")
+    # the gradient of B̂ as the loss hands it to K2's backward: the last
+    # channel of the NHWC output, element stride 3
+    return p.to(dev), t.to(dev), grad.to(dev).permute(0, 3, 1, 2)[:, 2:3]
+
+
+def build_triton() -> None:
+    """Compile K1 and K2 (forward, backward): Triton compiles a kernel at
+    its first launch, here at the training shapes."""
+    p, t, grad = db_step_maps()
+    D.fused_db_step(p[:, 0], t[:, 0])
+    D.db_step_backward(grad, D.db_step_forward(p, t))
+    torch.cuda.synchronize()
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         jobs = [pool.submit(cc.load_library),
-                pool.submit(geometry.load_library)]
+                pool.submit(geometry.load_library),
+                pool.submit(build_triton)]
         for job in jobs:
             job.result()
-    log(f"build ok: cc.cu (nvcc sm_90a) and geometry.cpp (g++) in "
+    log(f"build ok: cc.cu (nvcc sm_90a), geometry.cpp (g++) and K1, K2 "
+        f"forward and backward (Triton) in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -129,6 +198,27 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_row(name, route, source, replaces, err, tol, kernel, plain,
+               bytes_moved, ops) -> dict:
+    """Hold a kernel to its tolerance, time it and its plain version, and
+    give its row of the kernels line (launches are filled in later).
+    ``ms`` is the time per call of back-to-back calls from CUDA events,
+    host launch cost included; ``device_ms`` the card's own activity per
+    call, from torch.profiler."""
+    if not err <= tol:
+        raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
+    ms, plain_ms = timed(kernel, 20), timed(plain, 3)
+    dev_ms, _ = device_kernels(kernel, 20)
+    bound_ms, bound_by = bound(bytes_moved, ops)
+    log(f"kernel {name}: max_abs_err {err} (tolerance {tol}), "
+        f"{ms:.4f} ms, on the card {dev_ms:.4f} ms, plain {plain_ms:.3f} "
+        f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": float(err),
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def phase_kernels() -> list[dict]:
@@ -140,18 +230,8 @@ def phase_kernels() -> list[dict]:
     rows = []
 
     def record(name, replaces, err, tol, kernel, plain, bytes_moved, ops):
-        if not err <= tol:
-            raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
-        ms, plain_ms = timed(kernel, 20), timed(plain, 3)
-        bound_ms, bound_by = bound(bytes_moved, ops)
-        rows.append({"name": name, "route": "cuda", "source": SRC,
-                     "replaces": f"{JAX_CC}:{replaces}", "launches": 0,
-                     "max_abs_err": float(err), "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None})
-        log(f"kernel {name}: max_abs_err {err} (tolerance {tol}), "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by})")
+        rows.append(kernel_row(name, "cuda", SRC, f"{JAX_CC}:{replaces}",
+                               err, tol, kernel, plain, bytes_moved, ops))
 
     # K3: labels exact; 8-connected on the foreground, 4-connected on the
     # background (the main path runs both, the second for K6)
@@ -219,6 +299,51 @@ def phase_kernels() -> list[dict]:
            fg_px * (12 + candidates * 10))
     log(f"kernels ok: {int(valid.sum())} valid components over {N} maps "
         f"of {SIZE}x{SIZE}, {fg_px} foreground pixels")
+    return rows
+
+
+def phase_db_step_kernels() -> list[dict]:
+    """K1, K2 forward and K2 backward at the training shapes. B̂ within
+    1e-6 (the kernels' exp is the card's fast one), the bitmap exact, dP
+    and dT within 1e-6 of max(1, max|g|). Bytes: K1 reads P, T and writes
+    B̂ and the bitmap, 16 B a pixel; K2 forward 12 B; K2 backward reads g
+    and B̂ and writes dP and dT, 16 B."""
+    p, t, grad = db_step_maps()
+    px = p.numel()
+    rows = []
+    bhat, bitmap = D.fused_db_step(p[:, 0], t[:, 0])
+    bhat_p, bitmap_p = D.fused_db_step_plain(p[:, 0], t[:, 0])
+    if not torch.equal(bitmap, bitmap_p):
+        raise AssertionError("fused_db_step: bitmaps differ")
+    rows.append(kernel_row(
+        "fused_db_step", "triton", TRITON_SRC, f"{JAX_DB_STEP}:36",
+        (bhat - bhat_p).abs().max().item(), 1e-6,
+        lambda: D.fused_db_step(p[:, 0], t[:, 0]),
+        lambda: D.fused_db_step_plain(p[:, 0], t[:, 0]), px * 16, px * 6))
+    rows[-1]["note"] = "no path of the package calls K1"
+
+    bhat = D.db_step_forward(p, t)
+    bhat_p = D.db_step_forward_plain(p, t)
+    ends = bhat.view(-1)[:2].tolist()
+    if not (ends[0] == 1.0 and ends[1] < 1e-21):
+        raise AssertionError(f"db_step_forward: sigmoid at +-50 gives {ends}")
+    rows.append(kernel_row(
+        "db_step_forward", "triton", TRITON_SRC, f"{JAX_DB_STEP}:76",
+        (bhat - bhat_p).abs().max().item(), 1e-6,
+        lambda: D.db_step_forward(p, t),
+        lambda: D.db_step_forward_plain(p, t), px * 12, px * 5))
+
+    dp, dt = D.db_step_backward(grad, bhat)
+    dp_p, dt_p = D.db_step_backward_plain(grad, bhat)
+    err = max((dp - dp_p).abs().max().item(), (dt - dt_p).abs().max().item())
+    rows.append(kernel_row(
+        "db_step_backward", "triton", TRITON_SRC, f"{JAX_DB_STEP}:114",
+        err, 1e-6 * max(1.0, grad.abs().max().item()),
+        lambda: D.db_step_backward(grad, bhat),
+        lambda: D.db_step_backward_plain(grad, bhat), px * 16, px * 5))
+    log(f"db step kernels ok at {TRAIN_BATCH}x1x{SIZE}x{SIZE}; the "
+        f"backward's gradient has element stride "
+        f"{D.uniform_stride(grad)}")
     return rows
 
 
@@ -350,6 +475,139 @@ def phase_check(pth: str) -> None:
         f"(tolerance 1e-4)")
 
 
+def train_config(workdir: str, size: int, batch: int, device: str):
+    cfg = default_config()
+    cfg.meta.device = device
+    cfg.meta.root_dir = workdir
+    cfg.hps.img_size = size
+    cfg.hps.batch_size = batch
+    cfg.logging.logger_file = None
+    cfg.metric.is_output_polygon = False     # rect-mode eval, on K3-K6
+    return cfg
+
+
+def phase_train(workdir: str) -> dict:
+    cfg = train_config(workdir, SIZE, TRAIN_BATCH, "cuda")
+    batch = text_batch(SEED, TRAIN_BATCH, SIZE)
+    events = []
+
+    def loader():
+        # an event before each step: consecutive events time one step on
+        # the card's clock without a host synchronisation
+        for _ in range(TRAIN_STEPS):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            yield batch
+
+    tests = [text_batch(SEED + 1 + i, 1, SIZE) for i in range(2)]
+    trainer = T.Trainer(cfg, loader(), tests)
+    state = trainer.init_state()
+    D.reset_launches()
+    state, _, _, _ = trainer.train_epoch(state, 0)
+    events.append(torch.cuda.Event(enable_timing=True))
+    events[-1].record()
+    torch.cuda.synchronize()
+    launches = dict(D.LAUNCHES)
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    totals = [row["total_loss"] for row in trainer.loss_log]
+    if not all(np.isfinite(v) for row in trainer.loss_log
+               for v in row.values()):
+        raise AssertionError(f"a loss is not finite: {trainer.loss_log}")
+    if len(totals) != TRAIN_STEPS or not np.mean(totals[-3:]) < totals[0]:
+        raise AssertionError(f"the loss did not fall: {totals}")
+    if not (launches["db_step_forward"] == launches["db_step_backward"]
+            == TRAIN_STEPS and launches["fused_db_step"] == 0):
+        raise AssertionError(f"K2 launches {launches} in {TRAIN_STEPS} "
+                             f"steps")
+    q25, med, q75 = (float(q) for q in np.percentile(step_ms[2:],
+                                                     [25, 50, 75]))
+    log(f"train ok: {TRAIN_STEPS} steps of batch {TRAIN_BATCH} at "
+        f"{SIZE}x{SIZE}, total loss {totals[0]:.4f} -> "
+        f"{np.mean(totals[-3:]):.4f} (mean of the last 3); K2 launches "
+        f"{launches['db_step_forward']} forward, "
+        f"{launches['db_step_backward']} backward")
+    log(f"train timing: ms per step over the last 10 steps [q25, median, "
+        f"q75] [{q25:.3f}, {med:.3f}, {q75:.3f}], "
+        f"{TRAIN_BATCH * 1e3 / med:.2f} img/s; all steps ms "
+        f"{json.dumps([round(v, 3) for v in step_ms])}")
+
+    # three more steps under the profiler: the card's busy time per step
+    # and the kernels that take it
+    step = T.build_train_step(cfg)
+    device_batch = T.to_device(batch, torch.device("cuda"))
+    busy_ms, by_name = device_kernels(
+        lambda: step(state, device_batch, LR), 3)
+    k2_ms = sum(v for k, v in by_name.items() if "_db_step_" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"train profile: the card busy {busy_ms:.3f} ms per step "
+        f"({100 * busy_ms / med:.2f} % of the median step; idle "
+        f"{100 * (1 - busy_ms / med):.2f} %); K2 forward + backward "
+        f"{k2_ms:.4f} ms = {100 * k2_ms / med:.4f} % of the step; top "
+        f"kernels ms per step "
+        f"{json.dumps({k[:60]: round(v, 4) for k, v in top})}")
+
+    cc.reset_launches()
+    test_loss, _, recall, precision, hmean = trainer.eval_epoch(state)
+    torch.cuda.synchronize()
+    eval_launches = dict(cc.LAUNCHES)
+    missing = [k for k, v in eval_launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"eval never launched {missing}")
+    prf = (precision, recall, hmean)
+    if not (np.isfinite(test_loss)
+            and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in prf)):
+        raise AssertionError(f"eval: test loss {test_loss}, P/R/F {prf}")
+    log(f"train eval ok: rect mode on 2 images, test loss {test_loss:.4f}, "
+        f"P {precision:.4f} R {recall:.4f} F {hmean:.4f}, launches "
+        f"{eval_launches}")
+    return launches
+
+
+def phase_check_train(workdir: str) -> None:
+    """One train step at 128², batch 2, on the card and on the CPU from the
+    same seeded weights and batch, under both OHEM reductions: the five
+    losses at rtol 1e-4, the BN statistics at atol 1e-5 + rtol 1e-4, and
+    each gradient within a share of its leaf's max |g| (at least 1). cuDNN's
+    and the CPU's f32 convolutions differ by ~1e-5 in P - T, which B̂ =
+    σ(50(P - T)) multiplies by up to 12.5: 1e-3 under 'mean'. Under 'none'
+    the top-k also takes or leaves the negatives whose loss lies within that
+    noise of the k-th largest, each moving its pixel's whole BCE gradient:
+    2e-2."""
+    batch = text_batch(SEED + 7, 2, 128)
+    for reduction, grad_tol in (("mean", 1e-3), ("none", 2e-2)):
+        results = []
+        for device in ("cuda", "cpu"):
+            cfg = train_config(workdir, 128, 2, device)
+            cfg.optimizer.reduction = reduction
+            state = T.Trainer(cfg).init_state()
+            state, loss, _, _ = T.build_train_step(cfg)(
+                state, T.to_device(batch, torch.device(device)), LR)
+            grads = {n: p.grad.cpu()
+                     for n, p in state.model.named_parameters()}
+            stats = {k: v.cpu() for k, v in state.model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+            results.append(([float(v) for v in loss], grads, stats))
+        (loss_c, grads_c, stats_c), (loss_h, grads_h, stats_h) = results
+        np.testing.assert_allclose(loss_c, loss_h, rtol=1e-4)
+        gaps = {k: (grads_c[k] - grads_h[k]).abs().max().item()
+                / max(1.0, grads_h[k].abs().max().item()) for k in grads_h}
+        worst = max(gaps, key=gaps.get)
+        if not gaps[worst] <= grad_tol:
+            raise AssertionError(f"{reduction}: gradient gap {gaps[worst]} "
+                                 f"of {worst}'s max")
+        worst_stat = 0.0
+        for k in stats_h:
+            torch.testing.assert_close(stats_c[k], stats_h[k], rtol=1e-4,
+                                       atol=1e-5)
+            worst_stat = max(worst_stat,
+                             (stats_c[k] - stats_h[k]).abs().max().item())
+        log(f"check ok: a train step ({reduction}) on the card vs the CPU "
+            f"at 128x128, batch 2: losses {loss_c} vs {loss_h}; worst "
+            f"gradient gap {gaps[worst]:.3g} of its leaf's max ({worst}, "
+            f"tolerance {grad_tol}), worst BN statistic gap "
+            f"{worst_stat:.3g}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -364,15 +622,23 @@ def main() -> int:
     try:
         phase_build()
         rows = phase_kernels()
+        db_rows = phase_db_step_kernels()
         with tempfile.TemporaryDirectory() as workdir:
             launches, pth = phase_serve(workdir)
+            train_launches = phase_train(workdir)
             phase_check(pth)
+            phase_check_train(workdir)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["launches_in"] = f"serve: one batch of {N}"
+    for row in db_rows:
+        row["launches"] = train_launches[row["name"]]
+        row["launches_in"] = f"train: {TRAIN_STEPS} steps"
+    rows += db_rows
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 
 Counterpart of ``db_text_minimal_tpu/models/dbnet.py::DBTextModel``. The
 public layout is the JAX package's: ``forward`` takes NHWC float images and
-returns NHWC (N, H, W, 2) = (prob, thresh). ``x.permute(0, 3, 1, 2)`` of a
+returns NHWC (N, H, W, 2) = (prob, thresh) in eval mode and (N, H, W, 3) =
+(prob, thresh, B̂) in train mode (dbnet.py:44-72); the align-corners resize
+after the head is a no-op at 640². ``x.permute(0, 3, 1, 2)`` of a
 contiguous NHWC tensor is already a channels-last NCHW tensor, so the
 layout change costs no copy.
 """

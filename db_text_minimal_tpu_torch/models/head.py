@@ -1,13 +1,15 @@
-"""DB segmentation head, eval mode.
+"""DB segmentation head.
 
 Counterpart of ``db_text_minimal_tpu/models/head.py``. Each ``DBHead``
 branch is conv3×3(C→C/4) + BN + relu → deconv2×2/2 + BN + relu →
 deconv2×2/2 → sigmoid, kept as an ``nn.Sequential`` whose indices 0/1/3/4/6
 are the reference's key names. The binarize conv1 has a bias, the thresh
 conv1 does not. ``FusedDBHead`` runs both branches' first convs as one
-conv and is weight-compatible through ``fuse_db_head_params``.
+conv and is weight-compatible through ``fuse_db_head_params``; it is an
+inference form and refuses train mode, as the JAX version asserts.
 
-Train mode (B̂ = σ(k(P − T)), the K2 kernel) comes with the training slice.
+In train mode ``DBHead`` returns (P, T, B̂) with B̂ = σ(k(P − T)) through
+kernel K2 (``ops.db_step.db_step``, head.py:76-84).
 """
 
 from __future__ import annotations
@@ -16,11 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.db_step import db_step
 from .layers import batch_norm
-
-_TRAIN_NOT_PORTED = (
-    "DB head train mode (B̂ = σ(k(P − T)), kernel K2) is ported with the "
-    "training step in slice 2; call .eval() for inference")
 
 
 def _branch(channels: int, width: int, first_bias: bool) -> nn.Sequential:
@@ -33,7 +32,10 @@ def _branch(channels: int, width: int, first_bias: bool) -> nn.Sequential:
 
 
 class DBHead(nn.Module):
-    """NCHW in, (N, 2, H, W) = (P, T) out."""
+    """NCHW in; (N, 2, H, W) = (P, T) out in eval mode, (N, 3, H, W) =
+    (P, T, B̂) in train mode."""
+
+    k = 50.0   # the step's steepness, the reference's and the JAX default
 
     def __init__(self, in_channels: int = 256):
         super().__init__()
@@ -42,9 +44,11 @@ class DBHead(nn.Module):
         self.thresh = _branch(in_channels, width, False)
 
     def forward(self, x):
+        shrink, threshold = self.binarize(x), self.thresh(x)
         if self.training:
-            raise NotImplementedError(_TRAIN_NOT_PORTED)
-        return torch.cat([self.binarize(x), self.thresh(x)], dim=1)
+            return torch.cat([shrink, threshold,
+                              db_step(shrink, threshold, self.k)], dim=1)
+        return torch.cat([shrink, threshold], dim=1)
 
 
 class FusedDBHead(nn.Module):
@@ -71,7 +75,8 @@ class FusedDBHead(nn.Module):
 
     def forward(self, x):
         if self.training:
-            raise NotImplementedError(_TRAIN_NOT_PORTED)
+            raise NotImplementedError(
+                "FusedDBHead is an inference form; train a DBHead")
         h = F.relu(self.bn1(self.conv1(x)))
         half = h.shape[1] // 2
         return torch.cat([self._tail(h[:, :half], "binarize"),

@@ -2,7 +2,8 @@
 
 Counterpart of ``db_text_minimal_tpu/models/layers.py``. Modules work in
 NCHW inside; the model's public functions keep the JAX package's NHWC.
-Batch norm: flax ``momentum=0.9`` is torch ``momentum=0.1``, eps 1e-5.
+Batch norm: flax ``momentum=0.9`` is torch ``momentum=0.1``, eps 1e-5, and
+in train mode flax's running-statistics rule (see ``BatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -14,8 +15,31 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """Batch norm with flax's running-statistics rule.
+
+    Train mode normalises with the batch mean and the biased batch variance,
+    as both frameworks do, and then moves the running mean and variance by
+    momentum 0.1 towards the batch mean and the **biased** variance, as
+    flax's ``BatchNorm`` does; ``nn.BatchNorm2d`` would take the unbiased
+    one, n/(n−1) larger. Eval mode is ``nn.BatchNorm2d``'s. The state_dict
+    keys are ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 class ConvBnRelu(nn.Module):

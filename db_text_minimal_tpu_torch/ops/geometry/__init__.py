@@ -1,10 +1,12 @@
 """Python bindings for the host geometry library (``cpp/geometry.cpp``).
 
 The port's own copy of ``db_text_minimal_tpu/ops/geometry``, bound for what
-the rect-mode postprocess needs: polygon area and perimeter, the
-Clipper-style round-join offset (unclip), ``min_area_rect``,
-``find_contours`` and ``fill_poly``. The shared library is compiled with g++
-at first use into the port's build directory.
+the rect-mode postprocess, the training labels and the IoU metric need:
+polygon area, perimeter and simplicity, the Clipper-style round-join offset
+(shrink, dilate, unclip), ``min_area_rect``, ``find_contours``,
+``fill_poly``, the border distance field of the threshold map, and polygon
+intersection and union areas. The shared library is compiled with g++ at
+first use into the port's build directory.
 """
 
 from __future__ import annotations
@@ -50,6 +52,15 @@ def load_library() -> ctypes.CDLL:
             lib.geo_fill_poly.restype = None
             lib.geo_fill_poly.argtypes = [c_fp, ctypes.c_int, ctypes.c_int,
                                           c_dp, ctypes.c_int, ctypes.c_float]
+            lib.geo_polygon_is_simple.restype = ctypes.c_int
+            lib.geo_polygon_is_simple.argtypes = [c_dp, ctypes.c_int]
+            lib.geo_intersection_area.restype = ctypes.c_double
+            lib.geo_intersection_area.argtypes = [c_dp, ctypes.c_int, c_dp,
+                                                  ctypes.c_int]
+            lib.geo_border_distance_field.restype = None
+            lib.geo_border_distance_field.argtypes = [
+                c_dp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_double, c_fp]
             _lib = lib
     return _lib
 
@@ -76,6 +87,29 @@ def polygon_signed_area(poly) -> float:
 def polygon_perimeter(poly) -> float:
     p = _as_poly(poly)
     return float(load_library().geo_polygon_perimeter(_dp(p), len(p)))
+
+
+def polygon_is_simple(poly) -> bool:
+    """At least 3 vertices and no self-intersection."""
+    p = _as_poly(poly)
+    if len(p) < 3:
+        return False
+    return bool(load_library().geo_polygon_is_simple(_dp(p), len(p)))
+
+
+def intersection_area(poly_a, poly_b) -> float:
+    """Area of the intersection of two simple polygons."""
+    a, b = _as_poly(poly_a), _as_poly(poly_b)
+    if len(a) < 3 or len(b) < 3:
+        return 0.0
+    return float(load_library().geo_intersection_area(_dp(a), len(a),
+                                                      _dp(b), len(b)))
+
+
+def union_area(poly_a, poly_b) -> float:
+    """Area of the union of two simple polygons (inclusion-exclusion)."""
+    return (polygon_area(poly_a) + polygon_area(poly_b)
+            - intersection_area(poly_a, poly_b))
 
 
 def min_area_rect(points):
@@ -193,3 +227,16 @@ def fill_poly(image: np.ndarray, polys, value: float = 1.0) -> np.ndarray:
             image.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), h, w,
             _dp(p), len(p), float(value))
     return image
+
+
+def border_distance_field(poly, height: int, width: int,
+                          norm: float) -> np.ndarray:
+    """(height, width) f32 map: each pixel's distance to the nearest edge of
+    ``poly``, divided by ``norm`` and clipped to [0, 1] (the threshold map's
+    distance field)."""
+    p = _as_poly(poly)
+    out = np.empty((height, width), dtype=np.float32)
+    load_library().geo_border_distance_field(
+        _dp(p), len(p), height, width, float(norm),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out

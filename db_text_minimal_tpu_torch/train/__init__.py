@@ -1,1 +1,1 @@
-"""Checkpoint loading."""
+"""Training: the train and eval steps, the epoch loop and checkpoints."""

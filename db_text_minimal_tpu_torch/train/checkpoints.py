@@ -1,27 +1,58 @@
-"""Checkpoint loading: reference-format ``.pth`` state_dicts.
+"""Checkpoints: the full training state, the three-checkpoint policy, and
+weight loading.
 
-Counterpart of ``db_text_minimal_tpu/train/checkpoints.py::load_params_any``
-for ``.pth`` files only. A ``.pth`` written from ``weights.state_dict_from_jax``
-or by the reference loads into both packages. The JAX package's own Flax
-msgpack / orbax ``.ckpt`` files are not read yet.
+Counterpart of ``db_text_minimal_tpu/train/checkpoints.py``. A checkpoint is
+one ``torch.save`` file of ``{"model": state_dict, "optimizer": Adam
+state_dict, "step": int}``, with the reference's key names in the model's
+state_dict, and a ``<path>.json`` of metadata beside it. ``load_params_any``
+reads the model weights of such a file or of a reference-format ``.pth``
+state_dict; the JAX package's own Flax msgpack / orbax checkpoints are not
+read yet. Pruned-width sidecars are not ported.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import zipfile
+
+import numpy as np
 import torch
 
 # the reference's backbone modules that its forward pass never calls
 _UNUSED_PREFIXES = ("backbone.fc.", "backbone.avgpool.", "backbone.smooth.")
 
 
+def save_checkpoint(path: str, state: dict, metadata: dict | None = None
+                    ) -> None:
+    """Write ``state`` to ``path`` through a temporary file, so a reader
+    never sees half of it, and ``metadata`` to ``<path>.json``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+    if metadata is not None:
+        with open(path + ".json", "w") as f:
+            json.dump(metadata, f, indent=2, default=str)
+
+
+def restore_checkpoint(path: str) -> dict:
+    """The state dict that ``save_checkpoint`` wrote, on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def load_params_any(path: str) -> dict:
-    """State_dict from a ``.pth`` file, with the ``module.`` prefix of a
-    DataParallel save and the reference's unused modules removed."""
-    if not path.endswith(".pth"):
+    """Model state_dict from a ``.pth`` file (with the ``module.`` prefix of
+    a DataParallel save and the reference's unused modules removed) or from
+    a checkpoint of ``save_checkpoint``."""
+    if path.endswith(".pth"):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    elif zipfile.is_zipfile(path):
+        sd = restore_checkpoint(path).get("model")
+    else:
         raise NotImplementedError(
-            f"{path}: only .pth state_dicts load in the PyTorch port; Flax "
-            f"msgpack/orbax .ckpt loading is a ROADMAP item")
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+            f"{path}: only .pth state_dicts and the port's own checkpoints "
+            f"load; Flax msgpack/orbax .ckpt loading is a ROADMAP item")
     if not isinstance(sd, dict):
         raise TypeError(f"{path} holds a {type(sd).__name__}, not a "
                         f"state_dict")
@@ -32,3 +63,41 @@ def load_params_any(path: str) -> dict:
         if not key.startswith(_UNUSED_PREFIXES):
             out[key] = value
     return out
+
+
+class CheckpointPolicy:
+    """The reference's three checkpoints: best hmean, best train and test
+    loss together, and last."""
+
+    def __init__(self, root_dir: str, best_cp_path: str, last_cp_path: str,
+                 best_hmean_cp_path: str, widths: dict | None = None):
+        if widths:
+            raise NotImplementedError(
+                "pruned-width checkpoints are not ported (ROADMAP item 16)")
+        self.best_cp_path = os.path.join(root_dir, best_cp_path)
+        self.last_cp_path = os.path.join(root_dir, last_cp_path)
+        self.best_hmean_cp_path = os.path.join(root_dir, best_hmean_cp_path)
+        self.best_test_loss = np.inf
+        self.best_train_loss = np.inf
+        self.best_hmean = 0.0
+
+    def on_epoch_end(self, state, *, train_loss: float, test_loss: float,
+                     hmean: float, epoch: int) -> list[str]:
+        saved = []
+        meta = {"epoch": epoch, "train_loss": train_loss,
+                "test_loss": test_loss, "hmean": hmean}
+        if hmean >= self.best_hmean:
+            self.best_hmean = hmean
+            save_checkpoint(self.best_hmean_cp_path, state, meta)
+            saved.append(self.best_hmean_cp_path)
+        if (test_loss <= self.best_test_loss
+                and train_loss <= self.best_train_loss):
+            self.best_test_loss = test_loss
+            self.best_train_loss = train_loss
+            save_checkpoint(self.best_cp_path, state, meta)
+            saved.append(self.best_cp_path)
+        return saved
+
+    def on_train_end(self, state, epoch: int) -> str:
+        save_checkpoint(self.last_cp_path, state, {"epoch": epoch})
+        return self.last_cp_path

@@ -1,0 +1,434 @@
+"""Trainer: the train and eval steps and the epoch loop.
+
+Port of ``db_text_minimal_tpu/train/trainer.py`` for one card:
+
+- a train step is the forward in train mode (P, T, B̂; B̂ through kernel K2),
+  the DB loss, the backward (K2's backward kernel), an Adam step at the
+  learning rate of the schedule, and the 2×2 confusion histogram counted on
+  the device;
+- the eval step runs the model in eval mode, the eval loss and the
+  histogram; the epoch's box P/R/F come from the rect-mode representer
+  (``DeviceBoxRepresenter`` over kernels K3–K6 by default) and
+  ``QuadMetric``. Polygon-mode eval is not ported;
+- the three-checkpoint policy and the warmup-poly (per step) or
+  reduce-on-plateau (per epoch) learning rate.
+
+Losses and histograms stay on the device between log points: nothing is
+read back per step. Scalars are logged every ``hps.log_iter`` steps and kept
+in ``Trainer.loss_log``. The model trains in fp32 with TF32 off for cuDNN
+and matmul, the JAX trainer's precision off the TPU; the ``Trainer``
+constructor sets both flags for the process. The JAX ``parallel`` mesh
+section is ignored on one card.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import torch
+
+from .. import losses as L
+from ..config import ConfigNode
+from ..lr_schedules import ReduceLROnPlateau, warmup_poly_lr
+from ..metrics import QuadMetric, RunningScore
+from ..models import DBTextModel
+from ..postprocess import DeviceBoxRepresenter, SegDetectorRepresenter
+from ..utils import (CAFFE_MEAN, StepTimer, resolve_device, setup_determinism,
+                     setup_logger)
+from .checkpoints import CheckpointPolicy, load_params_any, restore_checkpoint
+
+ARRAY_KEYS = ("img", "prob_map", "supervision_mask", "thresh_map",
+              "text_area_map")
+
+
+def array_batch(batch: dict) -> dict:
+    """The array entries of a loader batch."""
+    return {k: batch[k] for k in ARRAY_KEYS if k in batch}
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """The array entries of a loader batch as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device, non_blocking=True)
+            for k, v in array_batch(batch).items()}
+
+
+def _unpack_bits(v: torch.Tensor) -> torch.Tensor:
+    """uint8 (..., W/8) -> (..., W) of 0/1, the first pixel in the most
+    significant bit (``np.packbits``' order)."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=v.device)
+    bits = (v.unsqueeze(-1) >> shifts) & 1
+    return bits.reshape(v.shape[:-1] + (v.shape[-1] * 8,))
+
+
+def device_preprocess(batch: dict) -> dict:
+    """The device's part of preprocessing, for tensors already on it: a
+    uint8 image becomes float32 minus the Caffe means (RGB order, the
+    reference's quirk), bit-packed binary maps (8 pixels a byte, as wide as
+    the image over 8) are unpacked, and every map becomes float32. Float32
+    batches pass through."""
+    img = batch["img"]
+    if img.dtype == torch.uint8:
+        # an asynchronous copy: a blocking one would wait for the stream,
+        # and so for the previous step, in every step
+        mean = torch.tensor(CAFFE_MEAN, dtype=torch.float32)
+        img = img.float() - mean.to(img.device, non_blocking=True)
+    width = img.shape[-2]
+    out = {"img": img}
+    for key in ("prob_map", "supervision_mask", "thresh_map",
+                "text_area_map"):
+        if key in batch:
+            v = batch[key]
+            if v.dtype == torch.uint8 and v.shape[-1] * 8 == width:
+                v = _unpack_bits(v)
+            out[key] = v.float()
+    return out
+
+
+@dataclass
+class TrainState:
+    """The model, its optimizer and the count of steps taken."""
+    model: DBTextModel
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(), "step": self.step}
+
+
+def make_optimizer(cfg, model: torch.nn.Module) -> torch.optim.Adam:
+    """Adam with betas (0.9, 0.999) and eps 1e-8; weight decay as L2 in the
+    gradient (torch Adam's form, not AdamW) and amsgrad from the config.
+    The learning rate is set before every step (``set_lr``) from the
+    schedule. The parameters of a deformable conv's offset branch
+    (``offset_conv``) form a group of their own whose rate is scaled by
+    ``optimizer.dcn_offset_lr_mult``; resnet18 has none."""
+    mult = float(cfg.optimizer.dcn_offset_lr_mult or 1.0)
+    offset, rest = [], []
+    for name, param in model.named_parameters():
+        (offset if "offset_conv" in name.split(".") else rest).append(param)
+    groups = [{"params": rest, "lr_mult": 1.0}]
+    if offset:
+        groups.append({"params": offset, "lr_mult": mult})
+    return torch.optim.Adam(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=float(cfg.optimizer.weight_decay
+                                               or 0.0),
+                            amsgrad=bool(cfg.optimizer.amsgrad))
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr * group["lr_mult"]
+
+
+def confusion_hist_2x2(pred_prob: torch.Tensor, gt: torch.Tensor,
+                       mask: torch.Tensor, thresh: float) -> torch.Tensor:
+    """2-class confusion histogram (gt rows, prediction columns) on the
+    maps' device; both maps are multiplied by the mask before the
+    threshold and the cast."""
+    pred = ((pred_prob * mask) > thresh).to(torch.int32)
+    gt_i = (gt * mask).to(torch.int32)
+    counts = [((gt_i == i) & (pred == j)).sum() for i in (0, 1)
+              for j in (0, 1)]
+    return torch.stack(counts).to(torch.float32).reshape(2, 2)
+
+
+def _loss_settings(cfg) -> dict:
+    # optimizer.reduction: 'mean' is the reference's degenerate OHEM,
+    # 'none' the per-pixel one
+    return {"beta": float(cfg.optimizer.beta),
+            "negative_ratio": float(cfg.optimizer.negative_ratio),
+            "reduction": str(cfg.optimizer.reduction or "mean")}
+
+
+def build_train_step(cfg):
+    """``train_step(state, batch, lr) -> (state, DBLossOutput, hist,
+    preds)`` for a batch of tensors on the model's device. It updates
+    ``state`` in place; the gradients stay in the parameters' ``.grad``
+    until the next step."""
+    alpha = float(cfg.optimizer.alpha)
+    settings = _loss_settings(cfg)
+    score_thresh = float(cfg.metric.thred_text_score)
+
+    def train_step(state: TrainState, batch: dict, lr: float):
+        batch = device_preprocess(batch)
+        model, optimizer = state.model, state.optimizer
+        model.train()
+        set_lr(optimizer, lr)
+        optimizer.zero_grad(set_to_none=True)
+        preds = model(batch["img"])
+        out = L.db_loss(preds, batch["prob_map"], batch["supervision_mask"],
+                        batch["thresh_map"], batch["text_area_map"],
+                        alpha=alpha, **settings)
+        out.total_loss.backward()
+        optimizer.step()
+        preds = preds.detach()
+        hist = confusion_hist_2x2(preds[..., 0], batch["prob_map"],
+                                  batch["supervision_mask"], score_thresh)
+        state.step += 1
+        return state, L.DBLossOutput(*(v.detach() for v in out)), hist, preds
+
+    return train_step
+
+
+def build_eval_step(cfg):
+    """``eval_step(state, batch) -> (preds, loss, hist)``, the model in
+    eval mode."""
+    settings = _loss_settings(cfg)
+    score_thresh = float(cfg.metric.thred_text_score)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: dict):
+        batch = device_preprocess(batch)
+        state.model.eval()
+        preds = state.model(batch["img"])
+        loss = L.db_loss_eval(preds, batch["prob_map"],
+                              batch["supervision_mask"], batch["thresh_map"],
+                              batch["text_area_map"], **settings)
+        hist = confusion_hist_2x2(preds[..., 0], batch["prob_map"],
+                                  batch["supervision_mask"], score_thresh)
+        return preds, loss, hist
+
+    return eval_step
+
+
+class Trainer:
+    """The epoch loop over ``train_loader`` and ``test_loader``, any
+    iterables of batch dicts (``data.datasets.DataLoader`` batches). The
+    device is ``cfg.meta.device``, CUDA by default; on a machine without a
+    GPU the caller must set it to ``"cpu"``."""
+
+    def __init__(self, cfg: ConfigNode, train_loader=None, test_loader=None):
+        self.cfg = cfg
+        self.device = resolve_device(cfg.meta.device or "cuda")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.logger = setup_logger(
+            log_file_path=os.path.join(cfg.meta.root_dir or ".",
+                                       cfg.logging.logger_file)
+            if cfg.logging and cfg.logging.logger_file else None)
+        self.seed = int(cfg.trainer.seed if cfg.trainer else 42)
+        setup_determinism(self.seed)
+        if cfg.model.widths:
+            raise NotImplementedError(
+                "pruned widths are not ported (ROADMAP item 16)")
+        if (cfg.model.neck or "FPN") != "FPN":
+            raise NotImplementedError(f"neck {cfg.model.neck!r} is not "
+                                      f"ported (ROADMAP item 15)")
+        self.train_loader = train_loader
+        self.test_loader = test_loader
+        self._train_step = build_train_step(cfg)
+        self._eval_step = build_eval_step(cfg)
+
+        self.base_lr = float(cfg.optimizer.lr)
+        if cfg.model.finetune_cp_path:
+            self.base_lr = float(cfg.optimizer.lr_finetune)
+        self.lrs_mode = cfg.lrs.mode if cfg.lrs else "reduce"
+        if self.lrs_mode == "poly":
+            # lrs.max_iters=0 keeps the reference's quirk (decay to 0 right
+            # after warmup); set it to the planned number of steps for a
+            # real polynomial decay
+            self.poly_schedule = warmup_poly_lr(
+                self.base_lr, warmup_iters=int(cfg.lrs.warmup_iters),
+                max_iters=int(cfg.lrs.max_iters or 0))
+            self.plateau = None
+        else:
+            self.poly_schedule = None
+            self.plateau = ReduceLROnPlateau(factor=float(cfg.lrs.factor),
+                                             patience=int(cfg.lrs.patience))
+        self.global_step = 0
+        self.loss_log: list[dict] = []
+
+    # ------------------------------------------------------------------
+    def init_state(self) -> TrainState:
+        """Seeded random weights, then the pretrained backbone and the
+        finetune checkpoint where the config names files that exist."""
+        cfg = self.cfg
+        model = DBTextModel(backbone_name=cfg.model.backbone or "resnet18",
+                            head_name=cfg.model.head or "DBHead")
+        model.reset_parameters(torch.Generator().manual_seed(self.seed))
+        pb = cfg.model.pretrained_backbone_path
+        if pb and os.path.exists(str(pb)):
+            self.logger.info("Loading pretrained backbone: %s", pb)
+            sd = torch.load(str(pb), map_location="cpu", weights_only=True)
+            missing, unexpected = model.backbone.load_state_dict(
+                {k: v for k, v in sd.items() if not k.startswith("fc.")},
+                strict=False)
+            bad = unexpected + [k for k in missing
+                                if not k.endswith("num_batches_tracked")]
+            if bad:
+                raise ValueError(f"{pb}: keys do not match the backbone: "
+                                 f"{bad}")
+        ft = cfg.model.finetune_cp_path
+        root = cfg.meta.root_dir or "."
+        if ft and os.path.exists(os.path.join(root, str(ft))):
+            path = os.path.join(root, str(ft))
+            self.logger.info("Loading finetune checkpoint: %s", path)
+            model.load_state_dict(load_params_any(path), strict=True)
+        model.to(self.device)
+        return TrainState(model, make_optimizer(cfg, model))
+
+    def resume_state(self, checkpoint_path: str) -> TrainState:
+        """The full training state of a checkpoint (weights, BN statistics,
+        Adam moments, step). A ``.pth`` holds weights only: the optimizer
+        then starts afresh at step 0."""
+        state = self.init_state()
+        if checkpoint_path.endswith(".pth"):
+            state.model.load_state_dict(load_params_any(checkpoint_path),
+                                        strict=True)
+        else:
+            saved = restore_checkpoint(checkpoint_path)
+            state.model.load_state_dict(saved["model"], strict=True)
+            state.optimizer.load_state_dict(saved["optimizer"])
+            state.step = int(saved["step"])
+        self.global_step = state.step
+        return state
+
+    def current_lr(self) -> float:
+        if self.lrs_mode == "poly":
+            return float(self.poly_schedule(self.global_step))
+        return self.base_lr * self.plateau.scale
+
+    def _representer(self):
+        metric = self.cfg.metric
+        if metric.is_output_polygon:
+            raise NotImplementedError(
+                "polygon-mode eval (metric.is_output_polygon=True) is not "
+                "ported: it needs the host polygon representer, "
+                "approx_poly_dp and DetEval (ROADMAP item 7); set "
+                "metric.is_output_polygon=False for rect mode")
+        on_device = bool(metric.device_boxes) and bool(
+            metric.device_boxes_in_train)
+        cls = DeviceBoxRepresenter if on_device else SegDetectorRepresenter
+        return cls(thresh=float(metric.thred_text_score),
+                   box_thresh=float(metric.prob_threshold),
+                   unclip_ratio=float(metric.unclip_ratio))
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, state: TrainState, epoch: int):
+        """One pass over ``train_loader``. Returns (state, mean total loss,
+        RunningScore, (last batch, its preds))."""
+        cfg = self.cfg
+        dev = self.device
+        running = RunningScore(int(cfg.hps.no_classes))
+        timer = StepTimer(warmup=1)
+        n_batches = 0
+        last = (None, None)
+        log_iter = int(cfg.hps.log_iter)
+        loss_sum = torch.zeros((), device=dev)
+        hist_sum = torch.zeros((2, 2), device=dev)
+        pending: list = []   # (global_step, lr, loss_out) not yet read
+
+        def flush(final: bool = False):
+            nonlocal pending
+            for gs, lr_v, lo in pending:
+                self.loss_log.append({"step": gs, "lr": lr_v, **{
+                    k: float(v) for k, v in lo._asdict().items()}})
+            if pending:
+                running.confusion_matrix = hist_sum.double().cpu().numpy()
+                scores, _ = running.get_scores()
+                if not final:
+                    row = self.loss_log[-1]
+                    self.logger.info(
+                        "[%d-%d] - lr: %g - total_loss: %.5f - loss: %.5f "
+                        "- acc: %.4f - iou: %.4f", epoch + 1, row["step"],
+                        row["lr"], row["total_loss"],
+                        row["prob_threshold_loss"], scores["Mean Acc"],
+                        scores["Mean IoU"])
+            pending = []
+
+        for batch in self.train_loader:
+            lr = self.current_lr()
+            self.global_step += 1
+            n_batches += 1
+            state, loss_out, hist, preds = self._train_step(
+                state, to_device(batch, dev), lr)
+            loss_sum += loss_out.total_loss
+            hist_sum += hist
+            timer.tick(batch["img"].shape[0])
+            last = (batch, preds)
+            pending.append((self.global_step, lr, loss_out))
+            if self.global_step % log_iter == 0:
+                flush()
+        flush(final=True)
+        train_loss = float(loss_sum)
+        if timer.images_per_sec > 0:
+            self.logger.info("throughput: %.1f img/s", timer.images_per_sec)
+        return state, train_loss / max(n_batches, 1), running, last
+
+    # ------------------------------------------------------------------
+    def eval_epoch(self, state: TrainState):
+        """One pass over ``test_loader`` in rect mode. Returns (test loss,
+        RunningScore, recall, precision, hmean)."""
+        cfg = self.cfg
+        dev = self.device
+        representer = self._representer()
+        on_device = isinstance(representer, DeviceBoxRepresenter)
+        metric = QuadMetric()
+        running = RunningScore(int(cfg.hps.no_classes))
+        raw_metrics = []
+        n = 0
+        size = int(cfg.hps.img_size)
+        loss_sum = torch.zeros((), device=dev)
+        hist_sum = torch.zeros((2, 2), device=dev)
+
+        def finish(batch, preds):
+            """Boxes and metrics of a batch, on the host while the device
+            runs the next batch."""
+            shape = {"shape": [(size, size)] * preds.shape[0]}
+            boxes, scores = representer(
+                shape, preds if on_device else preds.cpu().numpy())
+            raw_metrics.append(metric.validate_measure(batch,
+                                                       (boxes, scores)))
+
+        pending = None
+        for batch in self.test_loader:
+            preds, loss, hist = self._eval_step(state, to_device(batch, dev))
+            loss_sum += loss
+            hist_sum += hist
+            n += 1
+            if pending is not None:
+                finish(*pending)
+            pending = (batch, preds)
+        if pending is not None:
+            finish(*pending)
+        running.confusion_matrix += hist_sum.double().cpu().numpy()
+        metrics = metric.gather_measure(raw_metrics)
+        test_loss = float(loss_sum) / max(n, 1)
+        return (test_loss, running, metrics["recall"].avg,
+                metrics["precision"].avg, metrics["fmeasure"].avg)
+
+    # ------------------------------------------------------------------
+    def fit(self, state: TrainState | None = None,
+            no_epochs: int | None = None):
+        """Train and evaluate for ``no_epochs`` (default ``hps.no_epochs``),
+        saving the policy's checkpoints. Returns (state, history)."""
+        cfg = self.cfg
+        self._representer()   # refuse an eval mode that is not ported
+        state = state if state is not None else self.init_state()
+        epochs = no_epochs if no_epochs is not None else int(
+            cfg.hps.no_epochs)
+        policy = CheckpointPolicy(cfg.meta.root_dir or ".",
+                                  cfg.model.best_cp_path,
+                                  cfg.model.last_cp_path,
+                                  cfg.model.best_hmean_cp_path)
+        history = []
+        for epoch in range(epochs):
+            state, train_loss, _, _ = self.train_epoch(state, epoch)
+            self.logger.info("Train loss: %.5f", train_loss)
+            test_loss, _, recall, precision, hmean = self.eval_epoch(state)
+            self.logger.info(
+                "TEST/Recall: %.4f - TEST/Precision: %.4f - TEST/HMean: %.4f",
+                recall, precision, hmean)
+            self.logger.info("[%d] - test_loss: %.5f", self.global_step,
+                             test_loss)
+            policy.on_epoch_end(state.state_dict(), train_loss=train_loss,
+                                test_loss=test_loss, hmean=hmean, epoch=epoch)
+            if self.lrs_mode == "reduce":
+                self.plateau.step(test_loss)
+            history.append({"epoch": epoch, "train_loss": train_loss,
+                            "test_loss": test_loss, "hmean": hmean})
+        policy.on_train_end(state.state_dict(), epochs)
+        self.logger.info("Training completed")
+        return state, history

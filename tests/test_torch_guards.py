@@ -66,3 +66,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path):
         DBTextDetectionHandler(path)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_model(path)
+    from db_text_minimal_tpu_torch.config import default_config
+    from db_text_minimal_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(default_config())

@@ -118,9 +118,15 @@ def test_load_model_from_pth(tmp_path, jax_variables, images):
 
 
 def test_train_mode_not_ported():
-    model = DBTextModel()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        model(torch.zeros((1, 64, 64, 3)))
+    """Train mode is ported for DBHead, which then returns (P, T, B̂);
+    FusedDBHead is an inference form and refuses it, as the JAX version
+    asserts."""
+    out = DBTextModel()(torch.zeros((1, 64, 64, 3)))
+    assert out.shape == (1, 64, 64, 3)
+    torch.testing.assert_close(out[..., 2], torch.sigmoid(
+        50.0 * (out[..., 0] - out[..., 1])), rtol=0, atol=1e-6)
+    with pytest.raises(NotImplementedError, match="inference form"):
+        DBTextModel(head_name="FusedDBHead")(torch.zeros((1, 64, 64, 3)))
 
 
 def test_seeded_init():
