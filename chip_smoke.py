@@ -10,29 +10,43 @@ Phases, one output line each (or more), stopping at the first failure:
 1. build   - compile the CUDA kernels (csrc/cc.cu, nvcc sm_90a), the host
              geometry library and the Triton kernels K1 and K2
              (ops/db_step_triton.py), in parallel.
-2. kernels - hold each kernel K3-K6 against its plain PyTorch version on the
+2. kernels - hold each kernel K3-K7 against its plain PyTorch version on the
              card at the serving path's shapes (8 prob maps of 640x640,
-             K = 1000 slots), and K1, K2 forward and K2 backward at the
-             training shapes (P and T of 4x1x640x640, the backward's
-             gradient at the element stride of the NHWC output's last
-             channel); time each and its plain version.
+             K = 1000 slots; K7's bit-pack also at width 100), K8
+             (fast_boxes) against its run on the CPU, and K1, K2 forward
+             and K2 backward at the training shapes (P and T of
+             4x1x640x640, the backward's gradient at the element stride of
+             the NHWC output's last channel); time each and its plain
+             version, and the rect and polygon drivers (K9 device_boxes,
+             K7 device_poly_stats) on the card and on the CPU.
 3. serve   - serve one batch of 8 synthetic 640x480 images through the
              port's handler in box mode: resnet18 + FPN (inner 256) +
              FusedDBHead, fp32, weights drawn from a seed and loaded from a
-             .pth with the reference's key names. Every kernel's launch
-             counter must rise. Then time the batch.
-4. train   - the training configuration of the JAX package's defaults:
+             .pth with the reference's key names. Every kernel of the rect
+             path (K3-K6) must launch. Then time the batch.
+4. polygon - the served batch's maps through DevicePolyRepresenter
+             (polygon mode, the reference's default output): every kernel
+             of its device half (K3 both ways, K4 twice, K6, K7's bbox
+             statistics and bit-pack) must launch. Then the device part,
+             the copy to the host and the host finishing are timed on the
+             served batch and on the 8 kernel scenes.
+5. train   - the training configuration of the JAX package's defaults:
              resnet18 + FPN (inner 256) + DBHead in train mode, 640², batch
              4, fp32 with TF32 off, true per-pixel OHEM, Adam at lr 0.005.
              Twelve steps of Trainer.train_epoch on one synthetic batch
              (numpy scenes, GT maps in the compact layout); K2 forward and
              backward must launch once a step and the loss must fall. Then
-             Trainer.eval_epoch in rect mode on two test images: K3-K6 must
-             launch and P, R, F lie in [0, 1].
-5. check   - device boxes against the host rect-mode SegDetectorRepresenter
-             on synthetic scenes, the model on the card against the same
-             model on the CPU, and one train step on the card against the
-             same step on the CPU.
+             Trainer.eval_epoch in rect mode on two test images (K3-K6 must
+             launch), eval_epoch under the default configuration (polygon
+             mode, on the host as in the JAX trainer) and the quality
+             bench's full_eval with its four rows (host and device, rect and
+             polygon; K3-K7 must launch); P, R, F lie in [0, 1].
+6. check   - device boxes against the host rect-mode SegDetectorRepresenter
+             on synthetic scenes, device polygons against the host polygon
+             mode on the kernel scenes, K7 on the card against K7 on the
+             CPU, the model on the card against the same model on the CPU,
+             and one train step on the card against the same step on the
+             CPU.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -54,12 +68,14 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from db_text_minimal_tpu_torch.cli import quality_bench
 from db_text_minimal_tpu_torch.config import default_config
 from db_text_minimal_tpu_torch.data.scenes import text_batch
 from db_text_minimal_tpu_torch.models import DBTextModel
 from db_text_minimal_tpu_torch.ops import cc, geometry
 from db_text_minimal_tpu_torch.ops import db_step as D
 from db_text_minimal_tpu_torch.postprocess import (DeviceBoxRepresenter,
+                                                   DevicePolyRepresenter,
                                                    SegDetectorRepresenter)
 from db_text_minimal_tpu_torch.serve.handler import DBTextDetectionHandler
 from db_text_minimal_tpu_torch.train import trainer as T
@@ -73,6 +89,25 @@ JAX_CC = "db_text_minimal_tpu/ops/pallas/cc.py"
 TRITON_SRC = "db_text_minimal_tpu_torch/ops/db_step_triton.py"
 JAX_DB_STEP = "db_text_minimal_tpu/ops/pallas/db_step.py"
 TRAIN_BATCH, TRAIN_STEPS, LR = 4, 12, 0.005
+# the launch counters of each device postprocess path; K4 runs twice on
+# both (the foreground's and the 4-connected background's labels)
+RECT_PATH = ("connected_components_8", "connected_components_4",
+             "compact_slots", "hole_stats", "rotated_boxes")
+POLY_PATH = ("connected_components_8", "connected_components_4",
+             "compact_slots", "hole_stats", "bbox_stats", "pack_bits")
+KERNEL_IDS = {"fused_db_step": "K1", "db_step_forward": "K2",
+              "db_step_backward": "K2", "connected_components_8": "K3",
+              "connected_components_4": "K3", "compact_slots": "K4",
+              "rotated_boxes": "K5", "hole_stats": "K6", "bbox_stats": "K7",
+              "pack_bits": "K7", "pack_bits_w100": "K7", "fast_boxes": "K8"}
+
+
+def check_launches(launches: dict, path: tuple, what: str) -> None:
+    """Every counter of ``path`` rose, and K4 ran for both label maps."""
+    missing = [k for k in path if launches[k] == 0]
+    if missing or launches["compact_slots"] < 2:
+        raise AssertionError(f"{what}: kernels never launched {missing}, "
+                             f"launches {launches}")
 
 
 def log(msg: str) -> None:
@@ -98,22 +133,27 @@ def timed(fn, reps: int) -> float:
 def device_kernels(fn, reps: int) -> tuple[float, dict]:
     """Device time of ``fn`` from torch.profiler: the card's activity
     (kernels, copies, fills) per call in ms, and ms per call by kernel
-    name, over ``reps`` calls after one warm-up call."""
+    name, over ``reps`` calls after one warm-up call. A trace that holds
+    no device activity at all (the profiler now and then drops a whole
+    window) is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3 / reps)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3 / reps)
+        if by_name:
+            break
     return sum(by_name.values()), by_name
 
 
@@ -206,10 +246,12 @@ def kernel_row(name, route, source, replaces, err, tol, kernel, plain,
     give its row of the kernels line (launches are filled in later).
     ``ms`` is the time per call of back-to-back calls from CUDA events,
     host launch cost included; ``device_ms`` the card's own activity per
-    call, from torch.profiler."""
+    call, from torch.profiler. ``plain`` is the plain version on the card,
+    or its time in ms where it was measured elsewhere."""
     if not err <= tol:
         raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
-    ms, plain_ms = timed(kernel, 20), timed(plain, 3)
+    ms = timed(kernel, 20)
+    plain_ms = plain if isinstance(plain, float) else timed(plain, 3)
     dev_ms, _ = device_kernels(kernel, 20)
     bound_ms, bound_by = bound(bytes_moved, ops)
     log(f"kernel {name}: max_abs_err {err} (tolerance {tol}), "
@@ -302,6 +344,101 @@ def phase_kernels() -> list[dict]:
     return rows
 
 
+def host_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` on the host clock over ``reps`` runs
+    after one warm-up run, for work that runs on the CPU."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_poly_kernels() -> list[dict]:
+    """K7's two kernels at the serving shapes (bbox statistics over the K4
+    slots, the bit-pack of the bitmap) and the bit-pack at width 100 (rows
+    padded to 13 bytes) against their plain versions on the card: counts,
+    bboxes and packed bytes exact, prob sums (f64) within 1e-9 of their
+    size. K8's fast_boxes (K3, K4 and the bbox statistics with its filter)
+    against the same call on the CPU, where the wrappers run their plain
+    versions: boxes and keep exact, scores within 1e-6."""
+    dev = torch.device("cuda")
+    prob = torch.from_numpy(
+        np.stack([kernel_scene(i) for i in range(N)])).to(dev)
+    mask = prob > 0.3
+    px = N * SIZE * SIZE
+    keyed, _ = cc.compact_slots(cc.connected_components(mask), K)
+    rows = []
+
+    cnt, psum, bbox = cc.bbox_stats(keyed, prob, K)
+    cnt_p, psum_p, bbox_p = cc.bbox_stats_plain(keyed, prob, K)
+    if not (torch.equal(cnt, cnt_p) and torch.equal(bbox, bbox_p)):
+        raise AssertionError("bbox_stats: counts or bboxes differ")
+    rows.append(kernel_row(
+        "bbox_stats", "cuda", SRC, f"{JAX_CC}:448",
+        (psum - psum_p).abs().max().item(),
+        1e-9 * max(1.0, psum_p.abs().max().item()),
+        lambda: cc.bbox_stats(keyed, prob, K),
+        lambda: cc.bbox_stats_plain(keyed, prob, K),
+        px * (4 + 4) + N * K * (4 + 8 + 16), px * 8))
+
+    for name, m in (("pack_bits", mask),
+                    ("pack_bits_w100", mask[:, :100, :100].contiguous())):
+        packed = cc.pack_bits(m)
+        err = (packed.int() - cc.pack_bits_plain(m).int()).abs().max().item()
+        rows.append(kernel_row(
+            name, "cuda", SRC, f"{JAX_CC}:482", err, 0,
+            lambda m=m: cc.pack_bits(m), lambda m=m: cc.pack_bits_plain(m),
+            m.numel() + packed.numel(), m.numel() * 2))
+
+    boxes, scores, keep = cc.fast_boxes(prob)
+    ref = cc.fast_boxes(prob.cpu())
+    if not (torch.equal(boxes.cpu(), ref[0]) and torch.equal(keep.cpu(),
+                                                             ref[2])):
+        raise AssertionError("fast_boxes: boxes or keep differ from the CPU")
+    err = (scores.cpu() - ref[1]).abs().max().item()
+    if not err <= 1e-6:
+        raise AssertionError(f"fast_boxes: score error {err}")
+    # the K8 row's plain time is the same call on the CPU tensors, which
+    # run the plain versions (one warm-up, two runs: each takes a second)
+    cpu_prob = prob.cpu()
+    row = kernel_row("fast_boxes", "cuda", SRC, f"{JAX_CC}:506", err, 1e-6,
+                     lambda: cc.fast_boxes(prob),
+                     host_ms(lambda: cc.fast_boxes(cpu_prob), 2),
+                     px * 4 + N * K * (16 + 4 + 1), px * 12)
+    row["note"] = ("no path of the package calls K8; plain_ms is the same "
+                   "call on the host CPU, where the wrappers run their "
+                   "plain versions")
+    rows.append(row)
+    log(f"poly kernels ok: {int(keep.sum())} fast boxes kept over {N} maps "
+        f"of {SIZE}x{SIZE}; plain fast_boxes on the CPU "
+        f"{row['plain_ms']:.1f} ms")
+    return rows
+
+
+def phase_drivers() -> None:
+    """The two batched drivers that compose the kernels, K9 device_boxes
+    (rect mode) and K7 device_poly_stats (polygon mode), at the serving
+    shapes on the kernel scenes: time per call by events and on the card,
+    the same call on the CPU (the plain versions), and the bound from the
+    bytes each must move (read the f32 map once, write its records and, for
+    K7, the packed bitmap)."""
+    prob = torch.from_numpy(np.stack([kernel_scene(i) for i in range(N)]))
+    px = N * SIZE * SIZE
+    on_card = prob.to(torch.device("cuda"))
+    for name, fn, out_bytes in (
+            ("device_boxes", cc.device_boxes, N * K * (32 + 4 + 1)),
+            ("device_poly_stats", cc.device_poly_stats,
+             px // 8 + N * K * (16 + 4 + 1))):
+        ms = timed(lambda: fn(on_card), 20)
+        dev_ms, _ = device_kernels(lambda: fn(on_card), 20)
+        cpu_ms = host_ms(lambda: fn(prob), 2)
+        bound_ms, bound_by = bound(px * 4 + out_bytes, 0)
+        log(f"driver {name} at {N}x{SIZE}x{SIZE}: {ms:.4f} ms, on the card "
+            f"{dev_ms:.4f} ms, on the CPU (plain versions) {cpu_ms:.1f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+
+
 def phase_db_step_kernels() -> list[dict]:
     """K1, K2 forward and K2 backward at the training shapes. B̂ within
     1e-6 (the kernels' exp is the card's fast one), the bitmap exact, dP
@@ -364,7 +501,7 @@ def synthetic_images() -> list[bytes]:
     return out
 
 
-def phase_serve(workdir: str) -> tuple[dict, str]:
+def phase_serve(workdir: str) -> tuple[dict, str, torch.Tensor]:
     model = DBTextModel()
     model.reset_parameters(torch.Generator().manual_seed(SEED))
     pth = os.path.join(workdir, "dbnet_resnet18_seed.pth")
@@ -377,10 +514,7 @@ def phase_serve(workdir: str) -> tuple[dict, str]:
     result = handler.handle(request, mode="boxes")
     torch.cuda.synchronize()
     launches = dict(cc.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    check_launches(launches, RECT_PATH, "serve, box mode")
     if len(result) != N:
         raise AssertionError(f"{len(result)} results for {N} images")
     for r in result:
@@ -412,7 +546,69 @@ def phase_serve(workdir: str) -> tuple[dict, str]:
     log(f"serve timing: {N * 1e3 / quartiles['total'][1]:.2f} img/s at batch "
         f"{N}, fp32, 640x640 (median of {reps} batches); per batch ms "
         f"[q25, median, q75] {json.dumps(quartiles)}")
-    return launches, pth
+    return launches, pth, handler.inference(handler.preprocess(request))
+
+
+def poly_stages(rep: DevicePolyRepresenter, pred: torch.Tensor,
+                reps: int = 11) -> tuple[dict, int]:
+    """DevicePolyRepresenter on (N, H, W) maps on the card, in its three
+    stages, ``reps`` times after a warm-up: the device half (CUDA events),
+    the copy of its outputs to the host, and the host finishing (host
+    clock). Returns ms [q25, median, q75] per stage and the bytes copied."""
+    shape = {"shape": [tuple(pred.shape[1:])] * pred.shape[0]}
+    rep(shape, pred)
+    stages = {"device": [], "d2h": [], "host": [], "total": []}
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        stats = cc.device_poly_stats(pred, rep.thresh, rep.max_candidates)
+        end.record()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = [t.cpu().numpy() for t in stats]
+        t2 = time.perf_counter()
+        rep.finish(shape, pred.shape[2], *host)
+        t3 = time.perf_counter()
+        for name, ms in (("device", start.elapsed_time(end)),
+                         ("d2h", (t2 - t1) * 1e3), ("host", (t3 - t2) * 1e3),
+                         ("total", (t3 - t0) * 1e3)):
+            stages[name].append(ms)
+    quartiles = {k: [float(q) for q in np.percentile(v, [25, 50, 75])]
+                 for k, v in stages.items()}
+    return quartiles, sum(a.nbytes for a in host)
+
+
+def phase_polygon(preds: torch.Tensor) -> dict:
+    """Polygon mode on the served batch's maps (the handler's thresholds,
+    0.3 and 0.7), then the stage times there and on the kernel scenes."""
+    rep = DevicePolyRepresenter()
+    shape = {"shape": [(SIZE, SIZE)] * N}
+    cc.reset_launches()
+    boxes, scores = rep(shape, preds)
+    torch.cuda.synchronize()
+    launches = dict(cc.LAUNCHES)
+    check_launches(launches, POLY_PATH, "polygon mode")
+    for b, s in zip(boxes, scores):
+        if len(b) != len(s) or not all(
+                p.dtype == np.int64 and p.ndim == 2 and p.shape[1] == 2
+                for p in b) or not all(0.7 <= v <= 1.0 for v in s):
+            raise AssertionError("malformed polygon result")
+    log(f"polygon ok: the served batch of {N} through DevicePolyRepresenter, "
+        f"polygons per image {[len(b) for b in boxes]}, launches "
+        f"{launches}")
+    scenes = torch.from_numpy(
+        np.stack([kernel_scene(i) for i in range(N)])).to(preds.device)
+    for name, maps in (("served batch", preds[..., 0]),
+                       ("kernel scenes", scenes)):
+        quartiles, copied = poly_stages(rep, maps)
+        log(f"polygon timing ({name}, {'x'.join(map(str, maps.shape))}, "
+            f"median of 11): ms "
+            f"[q25, median, q75] {json.dumps(quartiles)}; copied to the host "
+            f"{copied} B against {maps.numel() * 4} B of f32 map")
+    return launches
 
 
 def phase_check(pth: str) -> None:
@@ -475,6 +671,50 @@ def phase_check(pth: str) -> None:
         f"(tolerance 1e-4)")
 
 
+def phase_check_polygon() -> None:
+    """DevicePolyRepresenter on the card against the host polygon mode on
+    the kernel scenes: the same polygons, scores within 2e-3 (the device
+    scores a component with its holes, the host its filled contour; the
+    JAX package's tolerance for the pair). K7 on the card against the same
+    call on the CPU, which runs the plain versions, at 640x640 and at width
+    100: packed bitmaps, bboxes and valid slots exact, scores within
+    1e-6."""
+    dev = torch.device("cuda")
+    maps = np.stack([kernel_scene(i) for i in range(N)])
+    shape = {"shape": [(SIZE, SIZE)] * N}
+    db, ds = DevicePolyRepresenter()(shape, torch.from_numpy(maps).to(dev))
+    hb, hs = SegDetectorRepresenter()(shape, maps[..., None],
+                                      is_output_polygon=True)
+    worst = 0.0
+    for i in range(N):
+        if len(db[i]) != len(hb[i]) or not all(
+                np.array_equal(a, b) for a, b in zip(db[i], hb[i])):
+            raise AssertionError(f"scene {i}: device polygons differ from "
+                                 f"the host's")
+        if db[i]:
+            worst = max(worst, float(np.abs(np.subtract(ds[i], hs[i])).max()))
+    if worst > 2e-3 or not any(db):
+        raise AssertionError(f"polygon scores {worst} apart, polygons per "
+                             f"scene {[len(b) for b in db]}")
+    errs = []
+    for size in (SIZE, 100):
+        prob = np.stack([kernel_scene(i, size) for i in range(N)])
+        on_card = cc.device_poly_stats(torch.from_numpy(prob).to(dev))
+        on_cpu = cc.device_poly_stats(torch.from_numpy(prob))
+        if not all(torch.equal(on_card[i].cpu(), on_cpu[i]) for i in (0, 1,
+                                                                      3)):
+            raise AssertionError(f"device_poly_stats at {size}: the card "
+                                 f"and the CPU differ")
+        errs.append((on_card[2].cpu() - on_cpu[2]).abs().max().item())
+        if errs[-1] > 1e-6:
+            raise AssertionError(f"device_poly_stats at {size}: score "
+                                 f"error {errs[-1]}")
+    log(f"check ok: device polygons equal the host's on {N} kernel scenes "
+        f"({[len(b) for b in db]} per scene), scores within {worst:.3g} "
+        f"(tolerance 2e-3); K7 on the card vs the CPU exact, score errors "
+        f"{errs} at {SIZE} and 100 wide")
+
+
 def train_config(workdir: str, size: int, batch: int, device: str):
     cfg = default_config()
     cfg.meta.device = device
@@ -482,12 +722,12 @@ def train_config(workdir: str, size: int, batch: int, device: str):
     cfg.hps.img_size = size
     cfg.hps.batch_size = batch
     cfg.logging.logger_file = None
-    cfg.metric.is_output_polygon = False     # rect-mode eval, on K3-K6
     return cfg
 
 
 def phase_train(workdir: str) -> dict:
     cfg = train_config(workdir, SIZE, TRAIN_BATCH, "cuda")
+    cfg.metric.is_output_polygon = False     # rect-mode eval, on K3-K6
     batch = text_batch(SEED, TRAIN_BATCH, SIZE)
     events = []
 
@@ -550,17 +790,49 @@ def phase_train(workdir: str) -> dict:
     test_loss, _, recall, precision, hmean = trainer.eval_epoch(state)
     torch.cuda.synchronize()
     eval_launches = dict(cc.LAUNCHES)
-    missing = [k for k, v in eval_launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"eval never launched {missing}")
-    prf = (precision, recall, hmean)
-    if not (np.isfinite(test_loss)
-            and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in prf)):
-        raise AssertionError(f"eval: test loss {test_loss}, P/R/F {prf}")
+    check_launches(eval_launches, RECT_PATH, "rect-mode eval")
+    check_prf("rect-mode eval", test_loss, precision, recall, hmean)
     log(f"train eval ok: rect mode on 2 images, test loss {test_loss:.4f}, "
         f"P {precision:.4f} R {recall:.4f} F {hmean:.4f}, launches "
         f"{eval_launches}")
+
+    # the default configuration evaluates in polygon mode, on the host
+    # representer over a host copy of the preds (the JAX trainer's rule)
+    cfg_poly = train_config(workdir, SIZE, TRAIN_BATCH, "cuda")
+    if not cfg_poly.metric.is_output_polygon:
+        raise AssertionError("the default configuration is not polygon mode")
+    test_loss, _, recall, precision, hmean = T.Trainer(
+        cfg_poly, None, tests).eval_epoch(state)
+    check_prf("polygon-mode eval", test_loss, precision, recall, hmean)
+    log(f"train eval ok: the default configuration (polygon mode) on 2 "
+        f"images, test loss {test_loss:.4f}, P {precision:.4f} R "
+        f"{recall:.4f} F {hmean:.4f}")
+
+    # the quality bench's eval: host and device, rect and polygon rows on
+    # the same preds, at the reference's eval constants (0.25, 0.5)
+    args = quality_bench.load_args(["--data_dir", workdir, "--out",
+                                    os.path.join(workdir, "unused.json"),
+                                    "--polygon", "--img_size", str(SIZE)])
+    cc.reset_launches()
+    out = quality_bench.full_eval(trainer, state, tests, args)
+    torch.cuda.synchronize()
+    bench_launches = dict(cc.LAUNCHES)
+    check_launches(bench_launches, RECT_PATH + POLY_PATH, "full_eval")
+    for row in ("host", "device", "host_poly", "device_poly"):
+        for proto in ("iou_pascal", "deteval"):
+            check_prf(f"full_eval {row} {proto}", 0.0,
+                      *(out[row][proto][k]
+                        for k in ("precision", "recall", "hmean")))
+    log(f"quality bench full_eval ok on 2 images: {json.dumps(out)}; "
+        f"launches {bench_launches}")
     return launches
+
+
+def check_prf(what, loss, precision, recall, hmean) -> None:
+    prf = (precision, recall, hmean)
+    if not (np.isfinite(loss)
+            and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in prf)):
+        raise AssertionError(f"{what}: loss {loss}, P/R/F {prf}")
 
 
 def phase_check_train(workdir: str) -> None:
@@ -622,11 +894,16 @@ def main() -> int:
     try:
         phase_build()
         rows = phase_kernels()
+        poly_rows = phase_poly_kernels()
+        phase_drivers()
         db_rows = phase_db_step_kernels()
         with tempfile.TemporaryDirectory() as workdir:
-            launches, pth = phase_serve(workdir)
+            launches, pth, preds = phase_serve(workdir)
+            poly_launches = phase_polygon(preds)
+            del preds
             train_launches = phase_train(workdir)
             phase_check(pth)
+            phase_check_polygon()
             phase_check_train(workdir)
     except Exception:
         traceback.print_exc()
@@ -634,11 +911,17 @@ def main() -> int:
         return 1
     for row in rows:
         row["launches"] = launches[row["name"]]
-        row["launches_in"] = f"serve: one batch of {N}"
+        row["launches_in"] = f"serve, box mode: one batch of {N}"
+    for row in poly_rows:
+        if row["name"] != "fast_boxes":
+            row["launches"] = poly_launches[row["name"].replace("_w100", "")]
+            row["launches_in"] = f"polygon mode: one batch of {N} at 640x640"
     for row in db_rows:
         row["launches"] = train_launches[row["name"]]
         row["launches_in"] = f"train: {TRAIN_STEPS} steps"
-    rows += db_rows
+    rows += poly_rows + db_rows
+    for row in rows:
+        row["id"] = KERNEL_IDS[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

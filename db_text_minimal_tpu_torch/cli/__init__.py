@@ -1,1 +1,2 @@
-"""Model loading shared by the entry points."""
+"""Entry points: model loading, the offline eval (``make_eval``,
+``deteval``, ``ioueval``) and the quality bench's evaluation."""

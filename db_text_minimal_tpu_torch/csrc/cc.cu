@@ -1,5 +1,5 @@
-// Connected components and per-component oriented-box statistics for the
-// device rect postprocess, written for Hopper (sm_90a).
+// Connected components and per-component statistics for the device rect
+// and polygon postprocess, written for Hopper (sm_90a).
 //
 // Port of the TPU postprocess in db_text_minimal_tpu/ops/pallas/cc.py. The
 // TPU version is laid out for a machine without fast gathers: min-label
@@ -12,9 +12,13 @@
 //   K5 cc_rot_boxes  <- component_rotated_boxes + _rect_corners (cc.py:181-320)
 //   K6 cc_hole_route <- _hole_stats (cc.py:383-444), after K3/K4 on the
 //                       4-connected background
+//   K7 cc_bbox_stats, cc_pack_bits <- _device_poly_stats_single
+//                       (cc.py:447-492), with K3, K4 and K6 around them
+//   K8 cc_bbox_stats <- component_boxes (cc.py:147-178), under fast_boxes
+//                       (cc.py:506-521)
 //
 // Every pass reads each input pixel once or a few times and does a handful
-// of integer or float operations on it, so all four are bound by memory
+// of integer or float operations on it, so all of them are bound by memory
 // traffic (and, for K5, by atomics into a few hot slot addresses), not by
 // arithmetic. Each design note below says what the kernel does about that.
 //
@@ -630,6 +634,107 @@ __global__ void k6_accumulate(const uint8_t* __restrict__ mask,
   }
 }
 
+// ------------------------------------------------------------- K7, K8 -----
+// The device half of the polygon postprocess (_device_poly_stats_single,
+// cc.py:447-492) and the stats of the axis-aligned fast boxes
+// (component_boxes, cc.py:147-178): per slot the pixel count, the prob sum
+// and the integer bbox, and the MSB-first bit-pack of the binary map that
+// the host traces contours on. Design: k7_stats reads the slot map and prob
+// once, 8 B a pixel, which bounds it; the TPU version's six scatters into
+// K + 1 slots become one pass in which each thread keeps a run of RUN
+// pixels' count, sum and extremes in registers while the slot stays the
+// same, and a warp whose lanes share one slot reduces by shuffles before a
+// single lane does the atomics, as in K5. Coordinates are ints, so their
+// minima and maxima are plain integer atomics, and the sum is f64 as in K5
+// and K6. k7_pack writes one byte from eight mask bytes per thread, bound by
+// reading the mask; a row is padded with zero bits to a whole byte.
+
+__device__ __forceinline__ int warp_min_i(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+__device__ __forceinline__ int warp_max_i(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// Empty slots keep the TPU version's fill: count 0, sum 0, bbox [W, H, -1, -1].
+__global__ void k7_init(int NK, int W, int H, int* cnt, double* psum,
+                        int* bbox) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= NK) return;
+  cnt[i] = 0;
+  psum[i] = 0.0;
+  bbox[(size_t)i * 4] = W;
+  bbox[(size_t)i * 4 + 1] = H;
+  bbox[(size_t)i * 4 + 2] = -1;
+  bbox[(size_t)i * 4 + 3] = -1;
+}
+
+__device__ __forceinline__ void flush_bbox(size_t at, int c, double ps, int x0,
+                                           int y0, int x1, int y1, int* cnt,
+                                           double* psum, int* bbox) {
+  atomicAdd(&cnt[at], c);
+  atomicAdd(&psum[at], ps);
+  int* b = bbox + at * 4;
+  atomicMin(&b[0], x0);
+  atomicMin(&b[1], y0);
+  atomicMax(&b[2], x1);
+  atomicMax(&b[3], y1);
+}
+
+__global__ void k7_stats(const int* __restrict__ keyed,
+                         const float* __restrict__ prob, int HW, int W, int K,
+                         int* cnt, double* psum, int* bbox) {
+  const size_t base = (size_t)blockIdx.y * HW;
+  const size_t sbase = (size_t)blockIdx.y * K;
+  const int p0 = (blockIdx.x * blockDim.x + threadIdx.x) * RUN;
+  int cur = -1, c = 0, x0 = 0, y0 = 0, x1 = -1, y1 = -1;
+  double ps = 0.0;
+  for (int j = 0; j < RUN; ++j) {
+    const int p = p0 + j;
+    if (p >= HW) break;
+    const int s = keyed[base + p];
+    if (s >= K) continue;
+    const int x = p % W, y = p / W;
+    if (s != cur) {
+      if (cur >= 0) flush_bbox(sbase + cur, c, ps, x0, y0, x1, y1, cnt, psum,
+                               bbox);
+      cur = s; c = 0; ps = 0.0; x0 = x1 = x; y0 = y1 = y;
+    }
+    c += 1;
+    ps += (double)prob[base + p];
+    x0 = min(x0, x); x1 = max(x1, x);
+    y0 = min(y0, y); y1 = max(y1, y);
+  }
+  if (warp_uniform(cur)) {
+    c = warp_sum(c); ps = warp_sum(ps);
+    x0 = warp_min_i(x0); y0 = warp_min_i(y0);
+    x1 = warp_max_i(x1); y1 = warp_max_i(y1);
+    if ((threadIdx.x & 31) != 0) cur = -1;
+  }
+  if (cur >= 0)
+    flush_bbox(sbase + cur, c, ps, x0, y0, x1, y1, cnt, psum, bbox);
+}
+
+// One packed byte per thread: pixels 8b..8b+7 of a row, the first in the
+// most significant bit (np.unpackbits' order), pixels past W as 0.
+__global__ void k7_pack(const uint8_t* __restrict__ mask, uint8_t* packed,
+                        int W, int W8, long total) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long row = i / W8;
+  const int x0 = (int)(i % W8) * 8;
+  const uint8_t* m = mask + row * W;
+  unsigned v = 0;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const int x = x0 + b;
+    v = (v << 1) | (x < W && m[x] ? 1u : 0u);
+  }
+  packed[i] = (uint8_t)v;
+}
+
 inline int cdiv(long a, long b) { return (int)((a + b - 1) / b); }
 
 }  // namespace
@@ -721,6 +826,27 @@ int cc_rot_boxes(const float* prob, const int* keyed,
   k5_finish<<<sblocks, 256, 0, stream>>>(theta, best_ext, cx, cy, cnt, psum,
                                          valid_root, hole_sum, hole_cnt, NK,
                                          corners, sides, scores, valid);
+  return (int)cudaGetLastError();
+}
+
+// K7/K8 stats: cnt (N,K) int32, psum (N,K) f64 and bbox (N,K,4) int32
+// [xmin, ymin, xmax, ymax] per slot of keyed (N,HW) over prob (N,HW); all
+// three are filled here (no init by the caller).
+int cc_bbox_stats(const int* keyed, const float* prob, int* cnt, double* psum,
+                  int* bbox, int N, int H, int W, int K, cudaStream_t stream) {
+  const int HW = H * W, NK = N * K;
+  k7_init<<<cdiv(NK, 256), 256, 0, stream>>>(NK, W, H, cnt, psum, bbox);
+  k7_stats<<<dim3(cdiv(HW, 256 * RUN), N), 256, 0, stream>>>(
+      keyed, prob, HW, W, K, cnt, psum, bbox);
+  return (int)cudaGetLastError();
+}
+
+// K7 bit-pack: packed (N,H,ceil(W/8)) uint8 from mask (N,H,W) uint8.
+int cc_pack_bits(const uint8_t* mask, uint8_t* packed, int N, int H, int W,
+                 cudaStream_t stream) {
+  const int W8 = (W + 7) / 8;
+  const long total = (long)N * H * W8;
+  k7_pack<<<cdiv(total, 256), 256, 0, stream>>>(mask, packed, W, W8, total);
   return (int)cudaGetLastError();
 }
 

@@ -1,2 +1,2 @@
-"""Training data on the host: GT label maps, batching and loading, and
-synthetic scenes."""
+"""Training data on the host: GT label maps, batching and loading,
+synthetic scenes and the datasets' GT parsers."""

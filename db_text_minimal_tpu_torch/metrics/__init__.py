@@ -1,9 +1,11 @@
-"""Evaluation metrics: pixel-level running scores, the IoU-Pascal box
-protocol and the QuadMetric batch wrapper."""
+"""Evaluation metrics: pixel-level running scores, the IoU-Pascal and
+DetEval box protocols and the QuadMetric batch wrapper."""
 
+from .deteval import DetectionDetEvalEvaluator
 from .iou import DetectionIoUEvaluator, polygon_iou
 from .pixel import AverageMeter, RunningScore, fast_hist
 from .quad import QuadMetric
 
-__all__ = ["DetectionIoUEvaluator", "polygon_iou", "AverageMeter",
-           "RunningScore", "fast_hist", "QuadMetric"]
+__all__ = ["DetectionDetEvalEvaluator", "DetectionIoUEvaluator",
+           "polygon_iou", "AverageMeter", "RunningScore", "fast_hist",
+           "QuadMetric"]

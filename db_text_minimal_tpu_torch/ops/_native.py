@@ -45,8 +45,11 @@ def build_library(src: str, name: str, kind: str) -> str:
                "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
                "-Xcompiler", "-fPIC", "-o", tmp, src]
     elif kind == "cxx":
-        cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src,
-               "-o", tmp]
+        # -march=native as the JAX package builds its copy: with FMA the
+        # compiler contracts a*b+c, which moves Douglas-Peucker's distance
+        # tests by an ulp, enough to keep or drop a vertex on a tie
+        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+               "-std=c++17", src, "-o", tmp]
     else:
         raise ValueError(f"unknown library kind {kind!r}")
     proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -1,7 +1,7 @@
-"""Device rect postprocess: connected components and oriented box statistics.
+"""Device postprocess: connected components and per-component statistics.
 
-Port of ``db_text_minimal_tpu/ops/pallas/cc.py``. Four kernels, written by
-hand in CUDA for Hopper (``csrc/cc.cu``), carry it:
+Port of ``db_text_minimal_tpu/ops/pallas/cc.py``. Kernels written by hand
+in CUDA for Hopper (``csrc/cc.cu``) carry it:
 
 - K3 ``connected_components`` (cc.py:63-111): union-find labelling, label =
   linear index of the component's minimum pixel, background -1.
@@ -12,10 +12,17 @@ hand in CUDA for Hopper (``csrc/cc.cu``), carry it:
 - K6 ``hole_stats`` (cc.py:383-444): prob sum and count of the background
   holes that each foreground component encloses, routed over the
   4-connected background's K3 labels and K4 slots.
+- K7 and K8 ``bbox_stats`` (cc.py:147-178 and :463-473): per-slot pixel
+  count, prob sum and integer bbox; K7 ``pack_bits`` (cc.py:482-491): the
+  binary map bit-packed MSB-first, rows padded to whole bytes.
 
-``device_boxes`` (cc.py:323-380) composes them over a batch, so only (N, K)
-records leave the device. Scores are always hole-filled (the JAX default)
-and the angle search always uses ``NUM_ANGLES`` candidates per fine stage.
+``device_boxes`` (cc.py:323-380) composes them over a batch for rect mode,
+so only (N, K) records leave the device; ``device_poly_stats``
+(cc.py:447-503) for polygon mode, so the packed map and (N, K) records
+leave it; ``component_boxes`` and ``fast_boxes`` (cc.py:147-178, :506-521)
+give axis-aligned boxes. Scores are always hole-filled in rect mode (the
+JAX default) and the angle search always uses ``NUM_ANGLES`` candidates per
+fine stage.
 
 Every wrapper takes batched tensors. On a CUDA tensor it launches its
 kernel, counts the launch in ``LAUNCHES`` and raises if the kernel does not
@@ -37,7 +44,8 @@ import torch
 from ._native import CSRC, build_library
 
 LAUNCHES = {"connected_components_8": 0, "connected_components_4": 0,
-            "compact_slots": 0, "hole_stats": 0, "rotated_boxes": 0}
+            "compact_slots": 0, "hole_stats": 0, "rotated_boxes": 0,
+            "bbox_stats": 0, "pack_bits": 0}
 
 NUM_ANGLES = 5
 
@@ -65,8 +73,10 @@ def load_library() -> ctypes.CDLL:
                                           i, i, i, i, p]
             lib.cc_rot_boxes.argtypes = ([p] * 6 + [p, i] + [p] * 17
                                          + [i, i, i, i, p])
+            lib.cc_bbox_stats.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            lib.cc_pack_bits.argtypes = [p, p, i, i, i, p]
             for fn in (lib.cc_label, lib.cc_compact, lib.cc_hole_route,
-                       lib.cc_rot_boxes):
+                       lib.cc_rot_boxes, lib.cc_bbox_stats, lib.cc_pack_bits):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -452,7 +462,89 @@ def rotated_boxes(prob: torch.Tensor, keyed: torch.Tensor,
     return corners, sides, scores, valid.bool()
 
 
+# ------------------------------------------------------------- K7, K8 ----
+
+def bbox_stats_plain(keyed: torch.Tensor, prob: torch.Tensor,
+                     max_components: int):
+    """Plain version of the K7/K8 stats pass: exact counts and integer
+    extremes, f64 prob sums."""
+    n, h, w = prob.shape
+    k = max_components
+    key = keyed.reshape(n, -1).long()
+    pix = torch.arange(h * w, device=prob.device)
+    xs, ys = (pix % w).expand(n, -1), (pix // w).expand(n, -1)
+    count = _seg(torch.ones_like(key), key, k, "sum")
+    psum = _seg(prob.reshape(n, -1).double(), key, k, "sum")
+    bbox = torch.stack([_seg(xs, key, k, "amin", w),
+                        _seg(ys, key, k, "amin", h),
+                        _seg(xs, key, k, "amax", -1),
+                        _seg(ys, key, k, "amax", -1)], -1)
+    return count.to(torch.int32), psum, bbox.to(torch.int32)
+
+
+def bbox_stats(keyed: torch.Tensor, prob: torch.Tensor,
+               max_components: int):
+    """K7/K8 stats: per slot of ``keyed`` (N, H·W) int32 over ``prob``
+    (N, H, W) f32, the pixel count (N, K) int32, the prob sum (N, K) f64 and
+    the bbox (N, K, 4) int32 as [xmin, ymin, xmax, ymax]. An empty slot
+    keeps count 0, sum 0 and bbox [W, H, -1, -1], the JAX fill values."""
+    n, h, w = prob.shape
+    k = max_components
+    keyed = keyed.reshape(n, h * w)
+    if prob.dtype != torch.float32 or keyed.dtype != torch.int32:
+        raise TypeError("prob must be float32 and keyed int32")
+    if not _on_cuda(keyed, prob):
+        return bbox_stats_plain(keyed, prob, k)
+    dev = prob.device
+    keyed, prob = keyed.contiguous(), prob.contiguous()
+    cnt = torch.empty((n, k), dtype=torch.int32, device=dev)
+    psum = torch.empty((n, k), dtype=torch.float64, device=dev)
+    bbox = torch.empty((n, k, 4), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = load_library().cc_bbox_stats(
+            keyed.data_ptr(), prob.data_ptr(), cnt.data_ptr(),
+            psum.data_ptr(), bbox.data_ptr(), n, h, w, k, _stream(prob))
+    _check(err, "bbox_stats")
+    LAUNCHES["bbox_stats"] += 1
+    return cnt, psum, bbox
+
+
+def pack_bits_plain(mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of the K7 bit-pack."""
+    n, h, w = mask.shape
+    w8 = -(-w // 8)
+    bits = torch.zeros((n, h, w8 * 8), dtype=torch.int32, device=mask.device)
+    bits[..., :w] = (mask != 0).int()
+    weights = 1 << torch.arange(7, -1, -1, device=mask.device)
+    return (bits.view(n, h, w8, 8) * weights).sum(-1).to(torch.uint8)
+
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """K7 bit-pack: (N, H, W) bool/uint8 mask -> (N, H, ⌈W/8⌉) uint8, the
+    first pixel of each byte in its most significant bit (the order
+    ``np.unpackbits`` reads); the last byte of a row is padded with 0."""
+    mask = _as_mask(mask)
+    if not _on_cuda(mask):
+        return pack_bits_plain(mask)
+    n, h, w = mask.shape
+    packed = torch.empty((n, h, -(-w // 8)), dtype=torch.uint8,
+                         device=mask.device)
+    with torch.cuda.device(mask.device):
+        err = load_library().cc_pack_bits(mask.data_ptr(), packed.data_ptr(),
+                                          n, h, w, _stream(mask))
+    _check(err, "pack_bits")
+    LAUNCHES["pack_bits"] += 1
+    return packed
+
+
 # ------------------------------------------------------------ composition --
+
+def _as_prob_maps(prob_maps: torch.Tensor) -> torch.Tensor:
+    if prob_maps.dim() != 3:
+        raise ValueError(f"prob_maps must be (N, H, W), got "
+                         f"{tuple(prob_maps.shape)}")
+    return prob_maps.float().contiguous()
+
 
 def component_rotated_boxes(prob: torch.Tensor, labels: torch.Tensor,
                             max_components: int = 100):
@@ -475,13 +567,62 @@ def device_boxes(prob_maps: torch.Tensor, thresh: float = 0.3,
     min_size and box_thresh filters. Returns (corners (N, K, 4, 2), scores
     (N, K), keep (N, K)); the rects are pre-unclip, for the exact host
     finishing in ``postprocess.finish_device_rects``."""
-    if prob_maps.dim() != 3:
-        raise ValueError(f"prob_maps must be (N, H, W), got "
-                         f"{tuple(prob_maps.shape)}")
-    prob = prob_maps.float().contiguous()
+    prob = _as_prob_maps(prob_maps)
     labels = connected_components(prob > thresh)
     corners, sides, scores, valid = component_rotated_boxes(
         prob, labels, max_components=max_components)
     keep = (valid & (torch.minimum(sides[..., 0], sides[..., 1]) >= min_size)
             & (scores >= box_thresh))
     return corners, scores, keep
+
+
+def device_poly_stats(prob_maps: torch.Tensor, thresh: float = 0.3,
+                      max_components: int = 1000):
+    """Device half of the polygon postprocess over a batch (N, H, W):
+    threshold -> K3 -> K4 -> per-slot count, prob sum and bbox -> K3/K4 on
+    the background -> K6 -> hole-filled scores, and the bit-packed bitmap.
+    Returns (packed (N, H, ⌈W/8⌉) uint8, bboxes (N, K, 4) int32 [xmin,
+    ymin, xmax, ymax], scores (N, K) f32, valid (N, K) bool). A slot's score
+    is its mean prob over the component and its holes wherever it has
+    pixels or holes, as in the JAX version, whether or not it is valid."""
+    prob = _as_prob_maps(prob_maps)
+    k = max_components
+    mask = prob > thresh
+    keyed, valid_root = compact_slots(connected_components(mask), k)
+    cnt, psum, bboxes = bbox_stats(keyed, prob, k)
+    bg_keyed, _ = compact_slots(connected_components(~mask, 4), k)
+    hole_sum, hole_cnt = hole_stats(mask, keyed, bg_keyed, prob, k)
+    denom = cnt.float() + hole_cnt
+    scores = torch.where(denom > 0, (psum.float() + hole_sum)
+                         / denom.clamp(min=1.0), 0.0)
+    return pack_bits(mask), bboxes, scores, valid_root & (cnt > 0)
+
+
+def component_boxes(prob: torch.Tensor, labels: torch.Tensor,
+                    max_components: int = 100):
+    """K8 over a batch: labels (N, H, W) from ``connected_components`` ->
+    K4 -> boxes (N, K, 4) f32 [xmin, ymin, xmax, ymax], scores (N, K) mean
+    prob over each component (0 where not valid), areas (N, K) f32 pixel
+    counts and valid (N, K) bool."""
+    keyed, valid_root = compact_slots(labels, max_components)
+    cnt, psum, bbox = bbox_stats(keyed, prob, max_components)
+    areas = cnt.float()
+    valid = valid_root & (cnt > 0)
+    scores = torch.where(valid, psum.float() / areas.clamp(min=1.0), 0.0)
+    return bbox.float(), scores, areas, valid
+
+
+def fast_boxes(prob_maps: torch.Tensor, thresh: float = 0.3,
+               box_thresh: float = 0.7, min_size: int = 3,
+               max_components: int = 1000):
+    """Axis-aligned boxes over a batch (N, H, W): threshold -> K3 -> K8 ->
+    keep where valid, score >= box_thresh and the smaller side (in pixels,
+    ends included) >= min_size. Returns (boxes, scores, keep)."""
+    prob = _as_prob_maps(prob_maps)
+    labels = connected_components(prob > thresh)
+    boxes, scores, _, valid = component_boxes(prob, labels, max_components)
+    wide = boxes[..., 2] - boxes[..., 0] + 1
+    tall = boxes[..., 3] - boxes[..., 1] + 1
+    keep = (valid & (scores >= box_thresh)
+            & (torch.minimum(wide, tall) >= min_size))
+    return boxes, scores, keep

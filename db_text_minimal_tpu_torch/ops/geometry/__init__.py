@@ -1,9 +1,10 @@
 """Python bindings for the host geometry library (``cpp/geometry.cpp``).
 
 The port's own copy of ``db_text_minimal_tpu/ops/geometry``, bound for what
-the rect-mode postprocess, the training labels and the IoU metric need:
-polygon area, perimeter and simplicity, the Clipper-style round-join offset
-(shrink, dilate, unclip), ``min_area_rect``, ``find_contours``,
+the rect- and polygon-mode postprocess, the training labels and the IoU and
+DetEval metrics need: polygon area, perimeter and simplicity, the
+Clipper-style round-join offset (shrink, dilate, unclip), ``min_area_rect``,
+``approx_poly_dp`` (Douglas-Peucker), ``find_contours``,
 ``fill_poly``, the border distance field of the threshold map, and polygon
 intersection and union areas. The shared library is compiled with g++ at
 first use into the port's build directory.
@@ -41,6 +42,10 @@ def load_library() -> ctypes.CDLL:
                 fn.argtypes = [c_dp, ctypes.c_int]
             lib.geo_min_area_rect.restype = None
             lib.geo_min_area_rect.argtypes = [c_dp, ctypes.c_int, c_dp, c_dp]
+            lib.geo_approx_poly_dp.restype = ctypes.c_int
+            lib.geo_approx_poly_dp.argtypes = [c_dp, ctypes.c_int,
+                                               ctypes.c_double, c_dp,
+                                               ctypes.c_int]
             lib.geo_offset_polygon.restype = ctypes.c_int
             lib.geo_offset_polygon.argtypes = [
                 c_dp, ctypes.c_int, ctypes.c_double, ctypes.c_double, c_dp,
@@ -119,6 +124,16 @@ def min_area_rect(points):
     wh = np.empty((2,), dtype=np.float64)
     load_library().geo_min_area_rect(_dp(p), len(p), _dp(corners), _dp(wh))
     return corners, (float(wh[0]), float(wh[1]))
+
+
+def approx_poly_dp(poly, epsilon: float) -> np.ndarray:
+    """cv2.approxPolyDP equivalent for a closed curve (Douglas-Peucker):
+    (M, 2) float64 vertices of ``poly`` within ``epsilon`` of it."""
+    p = _as_poly(poly)
+    out = np.empty((max(len(p), 4), 2), dtype=np.float64)
+    m = load_library().geo_approx_poly_dp(_dp(p), len(p), float(epsilon),
+                                          _dp(out), len(out))
+    return out[:m]
 
 
 def offset_polygon(poly, delta: float, arc_tolerance: float = 0.25,

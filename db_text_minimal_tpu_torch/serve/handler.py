@@ -19,11 +19,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..cli.common import NOT_PORTED, load_model
 from ..postprocess import DeviceBoxRepresenter
 from ..utils import CAFFE_MEAN, resolve_device, test_resize
-
-_NOT_PORTED = ("infer_mode {!r} (BN-folded / int8 forward) is not ported "
-               "yet: ROADMAP item 13")
 
 
 class DBTextDetectionHandler:
@@ -33,7 +31,7 @@ class DBTextDetectionHandler:
         by ``initialize``). The default device is CUDA; on a machine without
         a GPU, ``device="cpu"`` must be passed."""
         if infer_mode != "module":
-            raise NotImplementedError(_NOT_PORTED.format(infer_mode))
+            raise NotImplementedError(NOT_PORTED.format(infer_mode))
         self.device = resolve_device(device)
         self.model_path = model_path
         self.box_representer = DeviceBoxRepresenter()
@@ -41,8 +39,6 @@ class DBTextDetectionHandler:
         self.initialized = False
 
     def initialize(self) -> None:
-        from ..cli.common import load_model
-
         model = load_model(self.model_path, device=self.device,
                            fuse_head=True)
         mean = torch.tensor(CAFFE_MEAN, dtype=torch.float32,

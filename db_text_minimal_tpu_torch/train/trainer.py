@@ -7,9 +7,12 @@ Port of ``db_text_minimal_tpu/train/trainer.py`` for one card:
   learning rate of the schedule, and the 2×2 confusion histogram counted on
   the device;
 - the eval step runs the model in eval mode, the eval loss and the
-  histogram; the epoch's box P/R/F come from the rect-mode representer
-  (``DeviceBoxRepresenter`` over kernels K3–K6 by default) and
-  ``QuadMetric``. Polygon-mode eval is not ported;
+  histogram; the epoch's box P/R/F come from ``QuadMetric`` over the
+  representer of ``metric.is_output_polygon``: polygon mode (the default)
+  on the host ``SegDetectorRepresenter`` over a host copy of the preds, as
+  the JAX trainer does, and rect mode on ``DeviceBoxRepresenter`` (kernels
+  K3–K6) unless ``metric.device_boxes`` or ``device_boxes_in_train`` is
+  off;
 - the three-checkpoint policy and the warmup-poly (per step) or
   reduce-on-plateau (per epoch) learning rate.
 
@@ -291,19 +294,16 @@ class Trainer:
         return self.base_lr * self.plateau.scale
 
     def _representer(self):
+        """The eval's representer and whether it takes the preds on their
+        device: only rect mode runs on the device, as in the JAX trainer."""
         metric = self.cfg.metric
-        if metric.is_output_polygon:
-            raise NotImplementedError(
-                "polygon-mode eval (metric.is_output_polygon=True) is not "
-                "ported: it needs the host polygon representer, "
-                "approx_poly_dp and DetEval (ROADMAP item 7); set "
-                "metric.is_output_polygon=False for rect mode")
-        on_device = bool(metric.device_boxes) and bool(
-            metric.device_boxes_in_train)
+        on_device = (not metric.is_output_polygon
+                     and bool(metric.device_boxes)
+                     and bool(metric.device_boxes_in_train))
         cls = DeviceBoxRepresenter if on_device else SegDetectorRepresenter
         return cls(thresh=float(metric.thred_text_score),
                    box_thresh=float(metric.prob_threshold),
-                   unclip_ratio=float(metric.unclip_ratio))
+                   unclip_ratio=float(metric.unclip_ratio)), on_device
 
     # ------------------------------------------------------------------
     def train_epoch(self, state: TrainState, epoch: int):
@@ -359,12 +359,12 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def eval_epoch(self, state: TrainState):
-        """One pass over ``test_loader`` in rect mode. Returns (test loss,
-        RunningScore, recall, precision, hmean)."""
+        """One pass over ``test_loader``. Returns (test loss, RunningScore,
+        recall, precision, hmean)."""
         cfg = self.cfg
         dev = self.device
-        representer = self._representer()
-        on_device = isinstance(representer, DeviceBoxRepresenter)
+        representer, on_device = self._representer()
+        is_poly = bool(cfg.metric.is_output_polygon)
         metric = QuadMetric()
         running = RunningScore(int(cfg.hps.no_classes))
         raw_metrics = []
@@ -378,7 +378,8 @@ class Trainer:
             runs the next batch."""
             shape = {"shape": [(size, size)] * preds.shape[0]}
             boxes, scores = representer(
-                shape, preds if on_device else preds.cpu().numpy())
+                shape, preds if on_device else preds.cpu().numpy(),
+                is_output_polygon=is_poly)
             raw_metrics.append(metric.validate_measure(batch,
                                                        (boxes, scores)))
 
@@ -405,7 +406,6 @@ class Trainer:
         """Train and evaluate for ``no_epochs`` (default ``hps.no_epochs``),
         saving the policy's checkpoints. Returns (state, history)."""
         cfg = self.cfg
-        self._representer()   # refuse an eval mode that is not ported
         state = state if state is not None else self.init_state()
         epochs = no_epochs if no_epochs is not None else int(
             cfg.hps.no_epochs)

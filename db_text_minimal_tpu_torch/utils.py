@@ -1,8 +1,9 @@
-"""Shared helpers: preprocessing constants, device selection, seeding,
-logging and step timing.
+"""Shared helpers: image reading and preprocessing, device selection,
+seeding, logging and step timing.
 
-Counterpart of ``db_text_minimal_tpu/utils/__init__.py`` and of
-``StepTimer`` in ``utils/profiling.py``. The Caffe means
+Counterpart of ``db_text_minimal_tpu/utils/__init__.py``, of
+``filter_zero_boxes`` in ``utils/visualize.py`` and of ``StepTimer`` in
+``utils/profiling.py``. The Caffe means
 ``[103.939, 116.779, 123.68]`` are subtracted from images in RGB channel
 order, exactly as the reference does (BGR means applied to RGB data); the
 quirk is kept for checkpoint parity.
@@ -50,6 +51,41 @@ def test_resize(img: np.ndarray, size: int = 640,
         new_img[:h, :w] = resized
         return new_img
     return resized
+
+
+def read_img(img_fp: str):
+    """An image file as an RGB uint8 array, with its height and width."""
+    import cv2
+
+    img = cv2.imread(img_fp)
+    if img is None:
+        raise FileNotFoundError(img_fp)
+    img = img[:, :, ::-1]
+    h_origin, w_origin, _ = img.shape
+    return img, h_origin, w_origin
+
+
+def test_preprocess(img: np.ndarray, mean=CAFFE_MEAN, pad: bool = False,
+                    size: int = 640) -> np.ndarray:
+    """Inference preprocessing: ``test_resize``, the means subtracted in
+    float32, a batch axis added. Returns float32 (1, H, W, 3)."""
+    img = test_resize(img, size=size, pad=pad).astype(np.float32)
+    img = img - np.asarray(mean, dtype=np.float32)
+    return np.expand_dims(img, axis=0)
+
+
+def filter_zero_boxes(box_list, score_list, is_output_polygon: bool):
+    """Drop the all-zero entries that rect mode leaves for rejected
+    contours (and any all-zero polygon)."""
+    if len(box_list) == 0:
+        return [], []
+    if is_output_polygon:
+        keep = [np.asarray(b).sum() > 0 for b in box_list]
+        return ([b for b, k in zip(box_list, keep) if k],
+                [s for s, k in zip(score_list, keep) if k])
+    box_arr = np.asarray(box_list)
+    keep = np.abs(box_arr.reshape(box_arr.shape[0], -1)).sum(axis=1) > 0
+    return box_arr[keep], np.asarray(score_list)[keep]
 
 
 def resolve_device(device) -> torch.device:

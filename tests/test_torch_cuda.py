@@ -1,4 +1,4 @@
-"""The kernels on the card against their plain PyTorch versions: K3-K6
+"""The kernels on the card against their plain PyTorch versions: K3-K8
 (CUDA) and K1, K2 forward and K2 backward (Triton).
 
 Needs an NVIDIA GPU, nvcc and Triton; skipped elsewhere. This file imports no JAX,
@@ -53,6 +53,12 @@ def test_kernels_match_plain_versions(scene, device):
     torch.testing.assert_close(out[0][valid], ref[0][valid], rtol=0,
                                atol=1e-3)
     torch.testing.assert_close(out[2], ref[2], rtol=0, atol=1e-6)
+    stats = cc.bbox_stats(keyed, prob, K)
+    stats_p = cc.bbox_stats_plain(keyed, prob, K)
+    assert torch.equal(stats[0], stats_p[0])
+    assert torch.equal(stats[2], stats_p[2])
+    torch.testing.assert_close(stats[1], stats_p[1], rtol=1e-12, atol=1e-9)
+    assert torch.equal(cc.pack_bits(mask), cc.pack_bits_plain(mask))
     assert all(v > 0 for v in cc.LAUNCHES.values()), cc.LAUNCHES
 
 
@@ -97,6 +103,64 @@ def test_device_boxes_on_the_card_match_the_cpu(device):
     assert torch.equal(on_card[2].cpu(), keep)
     torch.testing.assert_close(on_card[0].cpu()[keep], on_cpu[0][keep],
                                rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("scene", sorted(SCENES) + ["width100"])
+def test_device_poly_stats_on_the_card_match_the_cpu(scene, device):
+    """K7 end to end (both K3 passes, K4 twice, K6, the bbox stats and the
+    bit-pack) on the card against the same call on the CPU: packed bitmap,
+    bboxes and valid exact, scores within 1e-6."""
+    if scene == "width100":
+        prob = np.random.RandomState(3).rand(3, 100, 100).astype(np.float32)
+        thresh = 0.6
+    else:
+        prob, thresh, _ = SCENES[scene]()
+        prob = np.stack([prob, prob[::-1].copy()])
+    cc.reset_launches()
+    on_card = cc.device_poly_stats(torch.from_numpy(prob).to(device), thresh)
+    on_cpu = cc.device_poly_stats(torch.from_numpy(prob), thresh)
+    assert cc.LAUNCHES["bbox_stats"] == cc.LAUNCHES["pack_bits"] == 1
+    for i in (0, 1, 3):
+        assert torch.equal(on_card[i].cpu(), on_cpu[i])
+    torch.testing.assert_close(on_card[2].cpu(), on_cpu[2], rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("width", [1, 7, 9, 100, 641])
+def test_pack_bits_widths_match_plain_version(width, device):
+    mask = torch.from_numpy(np.random.RandomState(width).rand(2, 33, width)
+                            < 0.5).to(device)
+    assert torch.equal(cc.pack_bits(mask), cc.pack_bits_plain(mask))
+
+
+def test_fast_boxes_on_the_card_match_the_cpu(device):
+    for name in ("speckles", "serpentine"):
+        prob, thresh, box_thresh = SCENES[name]()
+        on_cpu = cc.fast_boxes(torch.from_numpy(prob)[None], thresh,
+                               box_thresh)
+        on_card = cc.fast_boxes(torch.from_numpy(prob)[None].to(device),
+                                thresh, box_thresh)
+        assert torch.equal(on_card[0].cpu(), on_cpu[0])
+        assert torch.equal(on_card[2].cpu(), on_cpu[2])
+        torch.testing.assert_close(on_card[1].cpu(), on_cpu[1], rtol=0,
+                                   atol=1e-6)
+
+
+def test_device_poly_representer_on_the_card_matches_the_cpu(device):
+    from db_text_minimal_tpu_torch.postprocess import DevicePolyRepresenter
+
+    maps = np.stack([SCENES[s]()[0][:128, :128]
+                     for s in ("rot_rect", "nested_ring", "speckles")])
+    batch = {"shape": [(256, 192)] * 3}
+    rep = DevicePolyRepresenter(thresh=0.3, box_thresh=0.5)
+    ref_b, ref_s = rep(batch, torch.from_numpy(maps))
+    got_b, got_s = rep(batch, torch.from_numpy(maps).to(device))
+    assert sum(len(b) for b in ref_b) >= 3
+    for gb, rb, gs, rs in zip(got_b, ref_b, got_s, ref_s):
+        assert len(gb) == len(rb)
+        for a, b in zip(gb, rb):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(gs, rs, rtol=0, atol=1e-6)
 
 
 def _maps(device, shape=(4, 1, 640, 640), seed=0):

@@ -71,3 +71,12 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(default_config())
+    from db_text_minimal_tpu_torch.cli import quality_bench
+    from db_text_minimal_tpu_torch.cli.common import build_inference_forward
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_inference_forward(path)
+    args = quality_bench.load_args(["--data_dir", str(tmp_path), "--out",
+                                    str(tmp_path / "x.json")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(quality_bench.build_cfg(args))

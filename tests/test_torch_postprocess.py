@@ -103,7 +103,9 @@ def test_order_rect_points_matches_jax():
 
 
 def test_polygon_mode_not_ported():
-    with pytest.raises(NotImplementedError):
+    """DeviceBoxRepresenter has no polygon mode (the JAX one asserts so);
+    it refuses it and names the representer that has one."""
+    with pytest.raises(ValueError, match="DevicePolyRepresenter"):
         tpost.DeviceBoxRepresenter()({"shape": [(8, 8)]},
                                      torch.zeros((1, 8, 8, 1)),
                                      is_output_polygon=True)

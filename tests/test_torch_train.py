@@ -324,17 +324,43 @@ def test_trainer_fit_on_cpu_writes_checkpoints_and_resumes(tmp_path):
 
 
 def test_trainer_host_representer_and_polygon_mode(tmp_path):
-    """metric.device_boxes_in_train=False takes the host representer;
-    polygon-mode eval is not ported and says so before any step."""
+    """metric.device_boxes_in_train=False takes the host representer in
+    rect mode; the default configuration (polygon mode) fits and evaluates
+    through the host polygon representer, and its hmean equals host
+    polygons + QuadMetric over the trained model's own preds."""
+    from db_text_minimal_tpu_torch.metrics import QuadMetric
+    from db_text_minimal_tpu_torch.postprocess import SegDetectorRepresenter
+
     test = [text_batch(30, 1, SIZE)]
     trainer = T.Trainer(_cfg(tmp_path, device_boxes_in_train=False), [],
                         test)
     state = trainer.init_state()
     test_loss, _, recall, precision, hmean = trainer.eval_epoch(state)
     assert np.isfinite(test_loss) and 0.0 <= hmean <= 1.0
-    poly = T.Trainer(_cfg(tmp_path, is_output_polygon=True), [], test)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        poly.fit(no_epochs=1)
+
+    cfg = default_config()
+    cfg.meta.device = "cpu"
+    cfg.meta.root_dir = str(tmp_path)
+    cfg.hps.img_size = SIZE
+    cfg.hps.batch_size = BATCH
+    cfg.logging.logger_file = None
+    assert cfg.metric.is_output_polygon is True
+    train = [text_batch(31, BATCH, SIZE)]
+    test = [text_batch(32 + i, 1, SIZE) for i in range(2)]
+    poly = T.Trainer(cfg, train, test)
+    state, history = poly.fit(no_epochs=1)
+    assert len(history) == 1 and 0.0 <= history[0]["hmean"] <= 1.0
+    rep = SegDetectorRepresenter(cfg.metric.thred_text_score,
+                                 cfg.metric.prob_threshold,
+                                 unclip_ratio=cfg.metric.unclip_ratio)
+    metric, raw = QuadMetric(), []
+    for batch in test:
+        preds = poly._eval_step(state, T.to_device(batch, poly.device))[0]
+        out = rep({"shape": [(SIZE, SIZE)]}, preds.numpy(),
+                  is_output_polygon=True)
+        assert all(b.dtype == np.int64 and b.shape[1] == 2 for b in out[0][0])
+        raw.append(metric.validate_measure(batch, out))
+    assert metric.gather_measure(raw)["fmeasure"].avg == history[0]["hmean"]
 
 
 def test_finetune_and_pretrained_backbone_warm_start(tmp_path):
