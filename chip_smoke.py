@@ -7,10 +7,13 @@ Run from the repository root on a machine with a CUDA GPU::
 
 Phases, one output line each (or more), stopping at the first failure:
 
-1. build   - compile the CUDA kernels (csrc/cc.cu, nvcc sm_90a), the host
-             geometry library and the Triton kernels K1 and K2
-             (ops/db_step_triton.py), in parallel.
-2. kernels - hold each kernel K3-K7 against its plain PyTorch version on the
+1. build   - compile the CUDA kernels (csrc/cc.cu and csrc/int8_epilogue.cu,
+             nvcc sm_90a), the host geometry library and the Triton
+             kernels K1 and K2 (ops/db_step_triton.py), in parallel.
+2. kernels - hold P1 (csrc/int8_epilogue.cu) bit for bit against its plain
+             version in both forms (f32 at the FPN output conv's 8x160x160
+             x256, int8 at a layer-2 conv1's 8x80x80x128), and each kernel
+             K3-K7 against its plain PyTorch version on the
              card at the serving path's shapes (8 prob maps of 640x640,
              K = 1000 slots; K7's bit-pack also at width 100), K8
              (fast_boxes) against its run on the CPU, and K1, K2 forward
@@ -20,17 +23,25 @@ Phases, one output line each (or more), stopping at the first failure:
              version, and the rect and polygon drivers (K9 device_boxes,
              K7 device_poly_stats) on the card and on the CPU.
 3. serve   - serve one batch of 8 synthetic 640x480 images through the
-             port's handler in box mode: resnet18 + FPN (inner 256) +
-             FusedDBHead, fp32, weights drawn from a seed and loaded from a
-             .pth with the reference's key names. Every kernel of the rect
-             path (K3-K6) must launch. Then time the batch.
-4. polygon - the served batch's maps through DevicePolyRepresenter
+             port's handler in box mode, infer_mode "flax": resnet18 + FPN
+             (inner 256) + FusedDBHead, fp32, weights drawn from a seed and
+             loaded from a .pth with the reference's key names. Every kernel
+             of the rect path (K3-K6) must launch. Then time the batch.
+4. quant   - the BN-folded and int8 serving path on the same .pth and
+             batch: the handler in "folded" mode (its default; P1 must not
+             launch) and in "int8" mode (dynamic scales, 17 int8 convs: P1
+             launches 17 times a forward), and make_folded_forward with
+             static scales calibrated on the batch (7 int8-form and 10
+             f32-form launches), each in box mode (K3-K6 must launch); the
+             same stage timing as the serve phase for each, and each
+             forward profiled. Then the quant checks (see check).
+5. polygon - the served batch's maps through DevicePolyRepresenter
              (polygon mode, the reference's default output): every kernel
              of its device half (K3 both ways, K4 twice, K6, K7's bbox
              statistics and bit-pack) must launch. Then the device part,
              the copy to the host and the host finishing are timed on the
              served batch and on the 8 kernel scenes.
-5. train   - the training configuration of the JAX package's defaults:
+6. train   - the training configuration of the JAX package's defaults:
              resnet18 + FPN (inner 256) + DBHead in train mode, 640², batch
              4, fp32 with TF32 off, true per-pixel OHEM, Adam at lr 0.005.
              Twelve steps of Trainer.train_epoch on one synthetic batch
@@ -41,12 +52,15 @@ Phases, one output line each (or more), stopping at the first failure:
              mode, on the host as in the JAX trainer) and the quality
              bench's full_eval with its four rows (host and device, rect and
              polygon; K3-K7 must launch); P, R, F lie in [0, 1].
-6. check   - device boxes against the host rect-mode SegDetectorRepresenter
+7. check   - device boxes against the host rect-mode SegDetectorRepresenter
              on synthetic scenes, device polygons against the host polygon
              mode on the kernel scenes, K7 on the card against K7 on the
              CPU, the model on the card against the same model on the CPU,
-             and one train step on the card against the same step on the
-             CPU.
+             one train step on the card against the same step on the CPU,
+             the folded and int8 prob maps against the flax mode's, the
+             calibrated int8 forward on the card against the CPU (float
+             convs in f64 and in f32) and its fused and unfused forms
+             against each other.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -69,16 +83,21 @@ import numpy as np
 import torch
 
 from db_text_minimal_tpu_torch.cli import quality_bench
+from db_text_minimal_tpu_torch.cli.common import (load_state_dict,
+                                                  make_folded_forward)
 from db_text_minimal_tpu_torch.config import default_config
 from db_text_minimal_tpu_torch.data.scenes import text_batch
 from db_text_minimal_tpu_torch.models import DBTextModel
+from db_text_minimal_tpu_torch.models import quant_infer as Q
 from db_text_minimal_tpu_torch.ops import cc, geometry
 from db_text_minimal_tpu_torch.ops import db_step as D
+from db_text_minimal_tpu_torch.ops import int8 as I8
 from db_text_minimal_tpu_torch.postprocess import (DeviceBoxRepresenter,
                                                    DevicePolyRepresenter,
                                                    SegDetectorRepresenter)
 from db_text_minimal_tpu_torch.serve.handler import DBTextDetectionHandler
 from db_text_minimal_tpu_torch.train import trainer as T
+from db_text_minimal_tpu_torch.utils import CAFFE_MEAN
 
 SEED = 0
 N, SIZE, K = 8, 640, 1000
@@ -88,6 +107,11 @@ SRC = "db_text_minimal_tpu_torch/csrc/cc.cu"
 JAX_CC = "db_text_minimal_tpu/ops/pallas/cc.py"
 TRITON_SRC = "db_text_minimal_tpu_torch/ops/db_step_triton.py"
 JAX_DB_STEP = "db_text_minimal_tpu/ops/pallas/db_step.py"
+INT8_SRC = "db_text_minimal_tpu_torch/csrc/int8_epilogue.cu"
+PROBE = "benchmarks/int8_conv_probe.py"
+# P1 launches per forward: every int8 conv ends in it (17 with skip=());
+# with static scales 7 of them write the next conv's int8 input
+INT8_CONVS, FUSED_PLACES = 17, 7
 TRAIN_BATCH, TRAIN_STEPS, LR = 4, 12, 0.005
 # the launch counters of each device postprocess path; K4 runs twice on
 # both (the foreground's and the 4-connected background's labels)
@@ -99,7 +123,8 @@ KERNEL_IDS = {"fused_db_step": "K1", "db_step_forward": "K2",
               "db_step_backward": "K2", "connected_components_8": "K3",
               "connected_components_4": "K3", "compact_slots": "K4",
               "rotated_boxes": "K5", "hole_stats": "K6", "bbox_stats": "K7",
-              "pack_bits": "K7", "pack_bits_w100": "K7", "fast_boxes": "K8"}
+              "pack_bits": "K7", "pack_bits_w100": "K7", "fast_boxes": "K8",
+              "int8_epilogue_f32": "P1", "int8_epilogue_int8": "P1"}
 
 
 def check_launches(launches: dict, path: tuple, what: str) -> None:
@@ -223,14 +248,15 @@ def build_triton() -> None:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = [pool.submit(cc.load_library),
+                pool.submit(I8.load_library),
                 pool.submit(geometry.load_library),
                 pool.submit(build_triton)]
         for job in jobs:
             job.result()
-    log(f"build ok: cc.cu (nvcc sm_90a), geometry.cpp (g++) and K1, K2 "
-        f"forward and backward (Triton) in "
+    log(f"build ok: cc.cu and int8_epilogue.cu (nvcc sm_90a), geometry.cpp "
+        f"(g++) and K1, K2 forward and backward (Triton) in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -484,6 +510,55 @@ def phase_db_step_kernels() -> list[dict]:
     return rows
 
 
+def epilogue_inputs(m: int, c: int):
+    """int32 accumulators drawn from a seed over the range of a 3x3 conv of
+    256 int8 channels (|acc| <= 2304 * 127^2 < 2^26), and per-channel
+    scales and biases as a calibrated conv has them, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = torch.device("cuda")
+    acc = torch.randint(-2 ** 25, 2 ** 25, (m, c), generator=g,
+                        dtype=torch.int32, device=dev)
+    scale = torch.rand(c, generator=g, device=dev) * 2e-6
+    bias = torch.randn(c, generator=g, device=dev) * 0.5
+    return acc, scale, bias
+
+
+def phase_int8_kernels() -> list[dict]:
+    """P1 in both forms at the int8 forward's shapes, bit for bit against
+    its plain version on the card: the f32 form at the FPN output conv's
+    output (8x160x160x256; reads 4 B and writes 4 B an element) and the
+    int8 form at a layer-2 conv1's (8x80x80x128, at an output scale that
+    clips some values; 4 B in, 1 B out)."""
+    rows = []
+    for name, (n, h, w, c), out_scale, per_elem, ops in (
+            ("int8_epilogue_f32", (N, SIZE // 4, SIZE // 4, 256), None, 8, 3),
+            ("int8_epilogue_int8", (N, SIZE // 8, SIZE // 8, 128), 0.25, 5,
+             6)):
+        m = n * h * w
+        acc, scale, bias = epilogue_inputs(m, c)
+        osc = (None if out_scale is None
+               else torch.tensor(out_scale, device=acc.device))
+        out = I8.int8_epilogue(acc, scale, bias, True, osc)
+        ref = I8.int8_epilogue_plain(acc, scale, bias, True, osc)
+        if out.dtype != ref.dtype or not torch.equal(out, ref):
+            raise AssertionError(f"{name}: the kernel differs from its "
+                                 f"plain version")
+        row = kernel_row(
+            name, "cuda", INT8_SRC, f"{PROBE}:111",
+            (out.float() - ref.float()).abs().max().item(), 0,
+            lambda: I8.int8_epilogue(acc, scale, bias, True, osc),
+            lambda: I8.int8_epilogue_plain(acc, scale, bias, True, osc),
+            m * c * per_elem + c * 8, m * c * ops)
+        row["shape"] = [n, h, w, c]
+        row["note"] = ("library_ms null: no single PyTorch call computes "
+                       "the epilogue; plain_ms is its plain version, 4 "
+                       "(f32) or 8 (int8) ATen launches")
+        rows.append(row)
+        del acc, out, ref
+    log("int8 kernels ok: P1 bit-equal to its plain version in both forms")
+    return rows
+
+
 def synthetic_images() -> list[bytes]:
     from PIL import Image
 
@@ -501,12 +576,47 @@ def synthetic_images() -> list[bytes]:
     return out
 
 
-def phase_serve(workdir: str) -> tuple[dict, str, torch.Tensor]:
+def serve_stages(handler: DBTextDetectionHandler, request: list,
+                 reps: int = 11) -> dict:
+    """Box mode's stages per batch, ``reps`` times: host preprocess, the
+    forward box mode runs (the folded modes' prob-only one) to a
+    synchronisation, and the box postprocess. Host stages vary from call
+    to call on a shared host, so the result is ms [q25, median, q75] of the
+    per-batch times."""
+    stages = {"preprocess": [], "forward": [], "postprocess_boxes": [],
+              "total": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        batch = handler.preprocess(request)
+        t1 = time.perf_counter()
+        preds = handler.inference(batch, prob_only=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        handler.postprocess_boxes(preds)
+        t3 = time.perf_counter()
+        for name, dt in (("preprocess", t1 - t0), ("forward", t2 - t1),
+                         ("postprocess_boxes", t3 - t2), ("total", t3 - t0)):
+            stages[name].append(dt * 1e3)
+    return {k: [float(q) for q in np.percentile(v, [25, 50, 75])]
+            for k, v in stages.items()}
+
+
+def check_box_result(result: list) -> None:
+    if len(result) != N:
+        raise AssertionError(f"{len(result)} results for {N} images")
+    for r in result:
+        boxes = np.asarray(r["boxes"], float).reshape(-1, 4, 2)
+        if len(boxes) != len(r["scores"]) or not np.isfinite(boxes).all():
+            raise AssertionError(f"malformed box result {r}")
+
+
+def phase_serve(workdir: str) -> tuple[dict, str, torch.Tensor, float]:
     model = DBTextModel()
     model.reset_parameters(torch.Generator().manual_seed(SEED))
     pth = os.path.join(workdir, "dbnet_resnet18_seed.pth")
     torch.save(model.state_dict(), pth)
-    handler = DBTextDetectionHandler(pth)         # CUDA, FusedDBHead
+    # the plain fused-head module, fp32 (TF32 off)
+    handler = DBTextDetectionHandler(pth, infer_mode="flax")
     handler.initialize()
     request = [{"body": b} for b in synthetic_images()]
 
@@ -515,38 +625,204 @@ def phase_serve(workdir: str) -> tuple[dict, str, torch.Tensor]:
     torch.cuda.synchronize()
     launches = dict(cc.LAUNCHES)
     check_launches(launches, RECT_PATH, "serve, box mode")
-    if len(result) != N:
-        raise AssertionError(f"{len(result)} results for {N} images")
-    for r in result:
-        boxes = np.asarray(r["boxes"], float).reshape(-1, 4, 2)
-        if len(boxes) != len(r["scores"]) or not np.isfinite(boxes).all():
-            raise AssertionError(f"malformed box result {r}")
+    check_box_result(result)
     log(f"serve ok: batch of {N} in box mode, boxes per image "
         f"{[len(r['boxes']) for r in result]}, launches {launches}")
 
-    # host stages vary from call to call on a shared host: time each batch
-    # and report the median and the quartiles of the per-batch times
-    reps = 11
-    stages = {"preprocess": [], "forward": [], "postprocess_boxes": [],
-              "total": []}
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        batch = handler.preprocess(request)
-        t1 = time.perf_counter()
-        preds = handler.inference(batch)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        handler.postprocess_boxes(preds)
-        t3 = time.perf_counter()
-        for name, dt in (("preprocess", t1 - t0), ("forward", t2 - t1),
-                         ("postprocess_boxes", t3 - t2), ("total", t3 - t0)):
-            stages[name].append(dt * 1e3)
-    quartiles = {k: [float(q) for q in np.percentile(v, [25, 50, 75])]
-                 for k, v in stages.items()}
+    quartiles = serve_stages(handler, request)
     log(f"serve timing: {N * 1e3 / quartiles['total'][1]:.2f} img/s at batch "
-        f"{N}, fp32, 640x640 (median of {reps} batches); per batch ms "
+        f"{N}, fp32, 640x640 (median of 11 batches); per batch ms "
         f"[q25, median, q75] {json.dumps(quartiles)}")
-    return launches, pth, handler.inference(handler.preprocess(request))
+    return (launches, pth, handler.inference(handler.preprocess(request)),
+            quartiles["forward"][1])
+
+
+def p1_bytes(fn) -> int:
+    """The bytes P1 must move in one call of ``fn``: each launch's int32
+    accumulators read once, its output written once, its scales and biases
+    read once (the wrapper is wrapped for this call only; its launches
+    still count)."""
+    moved = []
+    real = Q.int8_epilogue
+
+    def counting(acc, scale, bias, relu, out_scale=None):
+        out = real(acc, scale, bias, relu, out_scale)
+        moved.append(acc.numel() * 4 + out.numel() * out.element_size()
+                     + scale.numel() * 8)
+        return out
+
+    Q.int8_epilogue = counting
+    try:
+        fn()
+    finally:
+        Q.int8_epilogue = real
+    return sum(moved)
+
+
+def phase_quant(pth: str, flax_forward_ms: float) -> dict:
+    """The folded modes on the served .pth and batch. The handler in
+    "folded" mode (the default; P1 never launches) and in "int8" mode
+    (dynamic scales, skip=(): 17 launches a forward, all in the f32 form),
+    each in box mode and in masks mode; then make_folded_forward with
+    static scales calibrated on the batch's first 2 images (7 int8-form and
+    10 f32-form launches), in box mode through the handler's postprocess.
+    The counts are set to 0 before each forward and read after it; the P1
+    rows' launches are their sum. Then box mode's stage timing for each."""
+    request = [{"body": b} for b in synthetic_images()]
+    p1_total = {k: 0 for k in I8.LAUNCHES}
+    maps = {}
+    handlers = {}
+
+    def drive(what, fn, want_int8, want_f32, rect_path):
+        cc.reset_launches()
+        I8.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        p1 = dict(I8.LAUNCHES)
+        if (p1["int8_epilogue_int8"], p1["int8_epilogue_f32"]) != (
+                want_int8, want_f32):
+            raise AssertionError(f"{what}: P1 launches {p1}, want "
+                                 f"{want_int8} int8-form and {want_f32} "
+                                 f"f32-form")
+        if rect_path:
+            check_launches(dict(cc.LAUNCHES), RECT_PATH, what)
+        for k in p1_total:
+            p1_total[k] += p1[k]
+        return out, p1
+
+    for mode in ("folded", "int8"):
+        handler = DBTextDetectionHandler(pth, infer_mode=mode)
+        handler.initialize()
+        handlers[mode] = handler
+        f32_form = INT8_CONVS if mode == "int8" else 0
+        result, p1 = drive(f"quant serve {mode}, box mode",
+                           lambda: handler.handle(request, mode="boxes"),
+                           0, f32_form, True)
+        check_box_result(result)
+        maps[mode], _ = drive(
+            f"quant serve {mode}, masks forward",
+            lambda: handler.inference(handler.preprocess(request)), 0,
+            f32_form, False)
+        log(f"quant serve ok ({mode}): batch of {N} in box mode, boxes per "
+            f"image {[len(r['boxes']) for r in result]}, P1 launches a "
+            f"forward {p1}")
+
+    # the served batch as the folded forwards take it: f32 on the card,
+    # the Caffe means subtracted (the handlers' own step)
+    batch = torch.from_numpy(handlers["int8"].preprocess(request)).cuda()
+    batch = batch.float() - torch.tensor(CAFFE_MEAN, device=batch.device)
+    static = make_folded_forward(load_state_dict(pth, fuse_head=True),
+                                 quantize=True, calibration=[batch[:2]])
+    int8_handler = handlers["int8"]
+    result, p1 = drive(
+        "quant static, box mode",
+        lambda: int8_handler.postprocess_boxes(static(batch, prob_only=True)),
+        FUSED_PLACES, INT8_CONVS - FUSED_PLACES, True)
+    check_box_result(result)
+    maps["int8_static"], _ = drive("quant static, both maps",
+                                   lambda: static(batch), FUSED_PLACES,
+                                   INT8_CONVS - FUSED_PLACES, False)
+    log(f"quant static ok: calibrated on 2 images, {INT8_CONVS} int8 convs, "
+        f"boxes per image {[len(r['boxes']) for r in result]}, P1 launches "
+        f"a forward {p1}")
+
+    for mode, handler in handlers.items():
+        quartiles = serve_stages(handler, request)
+        log(f"quant serve timing ({mode}): "
+            f"{N * 1e3 / quartiles['total'][1]:.2f} img/s at batch {N}, "
+            f"640x640, float convs bf16 (median of 11 batches); forward "
+            f"median {quartiles['forward'][1]:.3f} ms against the flax "
+            f"mode's {flax_forward_ms:.3f} ms (fp32); per batch ms [q25, "
+            f"median, q75] {json.dumps(quartiles)}")
+    # where a box-mode forward's time goes on the card, in each mode
+    batch_u8 = handlers["int8"].preprocess(request)
+    for mode, fn in (
+            ("folded", lambda: handlers["folded"].inference(
+                batch_u8, prob_only=True)),
+            ("int8", lambda: handlers["int8"].inference(batch_u8,
+                                                        prob_only=True)),
+            ("int8 static", lambda: static(batch, prob_only=True))):
+        fwd_ms = []
+        for _ in range(11):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        q25, med, q75 = (float(q) for q in np.percentile(fwd_ms,
+                                                         [25, 50, 75]))
+        busy_ms, by_name = device_kernels(fn, 3)
+        p1_ms = sum(v for k, v in by_name.items() if "epilogue<" in k)
+        p1_bound, _ = bound(p1_bytes(fn), 0)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log(f"quant profile ({mode}): prob-only forward ms [q25, median, "
+            f"q75] [{q25:.3f}, {med:.3f}, {q75:.3f}]; the card busy "
+            f"{busy_ms:.3f} ms a forward (idle "
+            f"{100 * (1 - busy_ms / med):.2f} %), P1 {p1_ms:.4f} ms of it "
+            f"against its bound {p1_bound:.4f} ms; top kernels ms "
+            f"{json.dumps({k[:60]: round(v, 4) for k, v in top})}")
+    return {"launches": p1_total, "maps": maps, "static": static,
+            "batch": batch}
+
+
+def phase_check_quant(flax_preds: torch.Tensor, quant: dict) -> None:
+    """The folded and int8 prob maps against the flax mode's on the served
+    batch (mean abs < 0.02, the JAX package's bound for int8 against
+    float); the calibrated forward's fused and unfused forms bit-equal at
+    batch 8; and that forward on the card against the CPU on 2 crops of
+    256x256, float convs in f64 (every int8 activation equal, maps within
+    1e-6) and in f32 (the first int8 conv's input equal at >= 99.9 % of
+    positions and the maps within a mean of 0.05: random weights carry a
+    single flip on to many later positions; the share of all int8
+    activations that agree is reported)."""
+    for mode, maps in quant["maps"].items():
+        gap = (maps[..., 0] - flax_preds[..., 0]).abs()
+        if not gap.mean().item() < 0.02:
+            raise AssertionError(f"{mode} prob maps {gap.mean().item()} "
+                                 f"from the flax mode's")
+        log(f"check ok: {mode} prob maps against the flax mode's: mean abs "
+            f"{gap.mean().item():.5f}, max {gap.max().item():.5f} "
+            f"(tolerance: mean 0.02)")
+    static, batch = quant["static"], quant["batch"]
+    qv = static.qvars
+    with torch.inference_mode():
+        fused = Q.quant_dbnet_forward(qv, batch)
+        plain = Q.quant_dbnet_forward(qv, batch, fuse=False)
+    if not torch.equal(fused, plain):
+        raise AssertionError("fused and unfused static forwards differ")
+    log(f"check ok: the static int8 forward's fused and unfused forms are "
+        f"bit-equal on the card at {N}x{SIZE}x{SIZE}")
+    x = batch[:2, 128:384, 128:384].contiguous()
+    cpu_tree = Q.tree_to(qv, "cpu")
+    tolerance = {"f64": "all equal, maps max 1e-6",
+                 "f32": "first int8 conv 99.9 %, maps mean 0.05"}
+    for dtype, name in ((torch.float64, "f64"), (torch.float32, "f32")):
+        runs = []
+        for tree, xx in ((qv, x), (cpu_tree, x.cpu())):
+            inputs = []
+            with torch.inference_mode():
+                out = Q.quant_dbnet_forward(tree, xx, compute_dtype=dtype,
+                                            int8_inputs=inputs)
+            runs.append((out.cpu(), [q.cpu() for q in inputs]))
+        (card, card_q), (cpu, cpu_q) = runs
+        equal = sum(int((a == b).sum()) for a, b in zip(card_q, cpu_q))
+        total = sum(a.numel() for a in cpu_q)
+        first = (card_q[0] == cpu_q[0]).double().mean().item()
+        gap = (card - cpu).abs()
+        share = equal / total
+        ok = (equal == total and gap.max().item() <= 1e-6 if name == "f64"
+              else first >= 0.999 and gap.mean().item() < 0.05)
+        if not ok:
+            raise AssertionError(f"int8 forward, float convs {name}, card "
+                                 f"vs CPU: {share} of int8 activations "
+                                 f"equal ({first} at the first conv), maps "
+                                 f"max {gap.max().item()}, mean "
+                                 f"{gap.mean().item()}")
+        log(f"check ok: static int8 forward on the card vs the CPU, float "
+            f"convs {name}, 2x256x256: int8 activations equal at {equal} of "
+            f"{total} positions ({100 * share:.4f} %; first int8 conv "
+            f"{100 * first:.4f} %), maps max abs {gap.max().item():.3g}, "
+            f"mean {gap.mean().item():.3g} (tolerance: {tolerance[name]})")
 
 
 def poly_stages(rep: DevicePolyRepresenter, pred: torch.Tensor,
@@ -893,12 +1169,17 @@ def main() -> int:
         f"{torch.version.cuda}")
     try:
         phase_build()
+        int8_rows = phase_int8_kernels()
         rows = phase_kernels()
         poly_rows = phase_poly_kernels()
         phase_drivers()
         db_rows = phase_db_step_kernels()
         with tempfile.TemporaryDirectory() as workdir:
-            launches, pth, preds = phase_serve(workdir)
+            launches, pth, preds, flax_ms = phase_serve(workdir)
+            quant = phase_quant(pth, flax_ms)
+            phase_check_quant(preds, quant)
+            p1_launches = quant["launches"]
+            del quant
             poly_launches = phase_polygon(preds)
             del preds
             train_launches = phase_train(workdir)
@@ -919,7 +1200,12 @@ def main() -> int:
     for row in db_rows:
         row["launches"] = train_launches[row["name"]]
         row["launches_in"] = f"train: {TRAIN_STEPS} steps"
-    rows += poly_rows + db_rows
+    for row in int8_rows:
+        row["launches"] = p1_launches[row["name"]]
+        row["launches_in"] = (f"quant: the int8 handler's box and masks "
+                              f"forwards and the static forward's, batch "
+                              f"of {N}")
+    rows += poly_rows + db_rows + int8_rows
     for row in rows:
         row["id"] = KERNEL_IDS[row["name"]]
     print(json.dumps({"kernels": rows}))

@@ -26,7 +26,7 @@ import numpy as np
 from ..data.parsers import PARSERS
 from ..postprocess import DeviceBoxRepresenter, SegDetectorRepresenter
 from ..utils import filter_zero_boxes, read_img, str_to_bool, test_preprocess
-from .common import build_inference_forward
+from .common import INFER_MODES, build_inference_forward
 
 
 def load_args(argv=None):
@@ -49,9 +49,10 @@ def load_args(argv=None):
                              "(DeviceBoxRepresenter); ignored in polygon "
                              "mode")
     parser.add_argument("--infer_mode", type=str, default="flax",
-                        choices=("flax", "folded", "int8"),
-                        help="flax = the plain module forward; folded and "
-                             "int8 are not ported yet")
+                        choices=INFER_MODES,
+                        help="flax = the plain module forward; folded = "
+                             "the BN-folded prob-only forward; int8 = that "
+                             "with the wide convs int8")
     parser.add_argument("--preds_fp", type=str,
                         default="./data/result_poly_preds.pkl")
     parser.add_argument("--img_fns_fp", type=str,

@@ -3,7 +3,8 @@
 DetEval).
 
 Port of ``db_text_minimal_tpu/cli/quality_bench.py``: ``load_args``,
-``build_cfg``, ``full_eval`` and ``warn_ctw_polygon_operating_point``.
+``build_cfg``, ``make_quant_forward`` (the int8 forward of ``--quant``),
+``full_eval`` and ``warn_ctw_polygon_operating_point``.
 ``main``, which trains on a dataset directory, needs the cv2 datasets
 (``build_dataset``), which are not ported yet; until then it raises.
 ``full_eval`` takes any trainer and loader of batch dicts, for example
@@ -17,12 +18,18 @@ import os
 import sys
 import time
 
+import numpy as np
+
 from ..config import load_config
 from ..metrics import (DetectionDetEvalEvaluator, DetectionIoUEvaluator,
                        QuadMetric)
+from ..models.head import fuse_variables
+from ..models.quant_infer import DEFAULT_SKIP
 from ..postprocess import (DeviceBoxRepresenter, DevicePolyRepresenter,
                            SegDetectorRepresenter)
-from ..train.trainer import to_device
+from ..train.trainer import device_preprocess, to_device
+from ..utils import CAFFE_MEAN
+from .common import make_folded_forward
 
 
 def load_args(argv=None):
@@ -62,6 +69,13 @@ def load_args(argv=None):
                              "protocol): implies --polygon and, unless "
                              "--unclip_ratio is given, unclip 2.5")
     parser.add_argument("--img_size", type=int, default=640)
+    parser.add_argument("--quant", action="store_true",
+                        help="evaluate the int8 inference forward "
+                             "(BN-folded, the wide convs int8, static "
+                             "scales) instead of the float model")
+    parser.add_argument("--quant_head", action="store_true",
+                        help="with --quant: also quantize the fused head's "
+                             "256->128 conv")
     parser.add_argument("--dataset_format", type=str, default="totaltext",
                         choices=("totaltext", "ctw1500"))
     parser.add_argument("--polygon", action="store_true",
@@ -111,6 +125,28 @@ def build_cfg(args):
                 else {"mode": "reduce", "factor": 0.2, "patience": 4}),
     }
     return load_config("/nonexistent-use-defaults", overrides)
+
+
+def make_quant_forward(trainer, state, test_loader, args):
+    """The int8 forward of the trained model (``--quant``): its weights in
+    the ``FusedDBHead`` layout, BN folded, the wide convs int8 (the head's
+    conv1 too with ``--quant_head``), activation scales calibrated on the
+    first 2 images of the first test batch (mean-subtracted when uint8).
+    Returns ``forward(device_batch)`` -> NHWC (prob, thresh) maps, the
+    signature ``full_eval`` takes."""
+    first = next(iter(test_loader))
+    cal_img = np.asarray(first["img"]).astype(np.float32)
+    if np.asarray(first["img"]).dtype == np.uint8:
+        cal_img = cal_img - np.asarray(CAFFE_MEAN, np.float32)
+    folded = make_folded_forward(
+        fuse_variables(state.model.state_dict()), quantize=True,
+        calibration=[cal_img[:2]],
+        skip=() if args.quant_head else DEFAULT_SKIP, device=trainer.device)
+
+    def forward(device_batch):
+        return folded(device_preprocess(device_batch)["img"])
+
+    return forward
 
 
 def full_eval(trainer, state, test_loader, args, forward=None):

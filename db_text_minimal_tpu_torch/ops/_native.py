@@ -4,7 +4,8 @@ Each library is compiled at first use into ``BUILD_DIR`` (listed in
 ``.gitignore``) and rebuilt when its source is newer. A build writes to a
 temporary name and renames it into place, so concurrent processes never load
 a half-written file. The compiler's output is kept beside the library as
-``<name>.log``.
+``<name>.log``. The launch helpers below are shared by the kernel modules
+that bind these libraries.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -60,3 +63,27 @@ def build_library(src: str, name: str, kind: str) -> str:
         raise RuntimeError(f"building {src} failed:\n{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError("inputs lie on different CUDA devices")
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"inputs must all lie on one CUDA device or on the "
+                     f"CPU, got {sorted(kinds)}")
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

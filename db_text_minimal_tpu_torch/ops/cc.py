@@ -41,7 +41,7 @@ import threading
 import numpy as np
 import torch
 
-from ._native import CSRC, build_library
+from ._native import CSRC, build_library, check_launch, on_cuda, stream_of
 
 LAUNCHES = {"connected_components_8": 0, "connected_components_4": 0,
             "compact_slots": 0, "hole_stats": 0, "rotated_boxes": 0,
@@ -80,28 +80,6 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
-
-
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; anything else raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
-        if len({t.device for t in tensors}) != 1:
-            raise ValueError("inputs lie on different CUDA devices")
-        return True
-    if kinds == {"cpu"}:
-        return False
-    raise ValueError(f"inputs must all lie on one CUDA device or on the "
-                     f"CPU, got {sorted(kinds)}")
-
-
-def _check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _as_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -166,14 +144,14 @@ def connected_components(mask: torch.Tensor,
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
     mask = _as_mask(mask)
-    if not _on_cuda(mask):
+    if not on_cuda(mask):
         return connected_components_plain(mask, connectivity)
     n, h, w = mask.shape
     labels = torch.empty((n, h, w), dtype=torch.int32, device=mask.device)
     with torch.cuda.device(mask.device):
         err = load_library().cc_label(mask.data_ptr(), labels.data_ptr(),
-                                      n, h, w, connectivity, _stream(mask))
-    _check(err, "connected_components")
+                                      n, h, w, connectivity, stream_of(mask))
+    check_launch(err, "connected_components")
     LAUNCHES[f"connected_components_{connectivity}"] += 1
     return labels
 
@@ -203,7 +181,7 @@ def compact_slots(labels: torch.Tensor, max_components: int):
     labels = labels.reshape(n, -1)
     if labels.dtype != torch.int32:
         raise TypeError(f"labels must be int32, got {labels.dtype}")
-    if not _on_cuda(labels):
+    if not on_cuda(labels):
         return compact_slots_plain(labels, max_components)
     labels = labels.contiguous()
     hw = labels.shape[1]
@@ -217,8 +195,8 @@ def compact_slots(labels: torch.Tensor, max_components: int):
         err = load_library().cc_compact(
             labels.data_ptr(), keyed.data_ptr(), valid_root.data_ptr(),
             chunk.data_ptr(), rank_at.data_ptr(), n, hw, max_components,
-            _stream(labels))
-    _check(err, "compact_slots")
+            stream_of(labels))
+    check_launch(err, "compact_slots")
     LAUNCHES["compact_slots"] += 1
     return keyed, valid_root.bool()
 
@@ -272,7 +250,7 @@ def hole_stats(mask: torch.Tensor, fg_keyed: torch.Tensor,
     if (fg_keyed.dtype != torch.int32 or bg_keyed.dtype != torch.int32
             or prob.dtype != torch.float32):
         raise TypeError("fg_keyed and bg_keyed must be int32, prob float32")
-    if not _on_cuda(mask, fg_keyed, bg_keyed, prob):
+    if not on_cuda(mask, fg_keyed, bg_keyed, prob):
         return hole_stats_plain(mask, fg_keyed, bg_keyed, prob,
                                 max_components)
     k = max_components
@@ -288,8 +266,8 @@ def hole_stats(mask: torch.Tensor, fg_keyed: torch.Tensor,
             mask.data_ptr(), fg_keyed.data_ptr(), bg_keyed.data_ptr(),
             prob.data_ptr(), border.data_ptr(), enclosing.data_ptr(),
             hole_sum.data_ptr(), hole_cnt.data_ptr(), n, h, w, k,
-            _stream(mask))
-    _check(err, "hole_stats")
+            stream_of(mask))
+    check_launch(err, "hole_stats")
     LAUNCHES["hole_stats"] += 1
     return hole_sum.float(), hole_cnt.float()
 
@@ -420,7 +398,7 @@ def rotated_boxes(prob: torch.Tensor, keyed: torch.Tensor,
         raise TypeError("prob must be float32 and keyed int32")
     if hole_sum.dtype != torch.float32 or hole_cnt.dtype != torch.float32:
         raise TypeError("hole sums and counts must be float32")
-    if not _on_cuda(prob, keyed, valid_root, hole_sum, hole_cnt):
+    if not on_cuda(prob, keyed, valid_root, hole_sum, hole_cnt):
         return rotated_boxes_plain(prob, keyed, valid_root, hole_sum,
                                    hole_cnt, k)
     stages = stage_offsets()
@@ -456,8 +434,8 @@ def rotated_boxes(prob: torch.Tensor, keyed: torch.Tensor,
             *(t.data_ptr() for t in (
                 cnt, psum, sx, sy, sxx, syy, sxy, cx, cy, theta, cs, ext,
                 best_ext, corners, sides, scores, valid)),
-            n, h, w, k, _stream(prob))
-    _check(err, "rotated_boxes")
+            n, h, w, k, stream_of(prob))
+    check_launch(err, "rotated_boxes")
     LAUNCHES["rotated_boxes"] += 1
     return corners, sides, scores, valid.bool()
 
@@ -493,7 +471,7 @@ def bbox_stats(keyed: torch.Tensor, prob: torch.Tensor,
     keyed = keyed.reshape(n, h * w)
     if prob.dtype != torch.float32 or keyed.dtype != torch.int32:
         raise TypeError("prob must be float32 and keyed int32")
-    if not _on_cuda(keyed, prob):
+    if not on_cuda(keyed, prob):
         return bbox_stats_plain(keyed, prob, k)
     dev = prob.device
     keyed, prob = keyed.contiguous(), prob.contiguous()
@@ -503,8 +481,8 @@ def bbox_stats(keyed: torch.Tensor, prob: torch.Tensor,
     with torch.cuda.device(dev):
         err = load_library().cc_bbox_stats(
             keyed.data_ptr(), prob.data_ptr(), cnt.data_ptr(),
-            psum.data_ptr(), bbox.data_ptr(), n, h, w, k, _stream(prob))
-    _check(err, "bbox_stats")
+            psum.data_ptr(), bbox.data_ptr(), n, h, w, k, stream_of(prob))
+    check_launch(err, "bbox_stats")
     LAUNCHES["bbox_stats"] += 1
     return cnt, psum, bbox
 
@@ -524,15 +502,15 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     first pixel of each byte in its most significant bit (the order
     ``np.unpackbits`` reads); the last byte of a row is padded with 0."""
     mask = _as_mask(mask)
-    if not _on_cuda(mask):
+    if not on_cuda(mask):
         return pack_bits_plain(mask)
     n, h, w = mask.shape
     packed = torch.empty((n, h, -(-w // 8)), dtype=torch.uint8,
                          device=mask.device)
     with torch.cuda.device(mask.device):
         err = load_library().cc_pack_bits(mask.data_ptr(), packed.data_ptr(),
-                                          n, h, w, _stream(mask))
-    _check(err, "pack_bits")
+                                          n, h, w, stream_of(mask))
+    check_launch(err, "pack_bits")
     LAUNCHES["pack_bits"] += 1
     return packed
 

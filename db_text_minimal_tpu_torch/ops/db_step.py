@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .cc import _on_cuda
+from ._native import on_cuda
 
 LAUNCHES = {"fused_db_step": 0, "db_step_forward": 0, "db_step_backward": 0}
 
@@ -71,7 +71,7 @@ def fused_db_step(prob: torch.Tensor, thresh_map: torch.Tensor,
                   k: float = 50.0, thresh: float = 0.3):
     """(N, H, W) f32 prob and threshold maps -> (B̂, bitmap), both f32."""
     _check_maps(prob, thresh_map)
-    if not _on_cuda(prob, thresh_map):
+    if not on_cuda(prob, thresh_map):
         return fused_db_step_plain(prob, thresh_map, k, thresh)
     p = _contiguous(prob, "prob")
     t = _contiguous(thresh_map, "thresh_map")
@@ -99,7 +99,7 @@ def db_step_forward(p: torch.Tensor, t: torch.Tensor,
                     k: float = 50.0) -> torch.Tensor:
     """K2 forward: B̂ = σ(k(P − T)) for contiguous f32 P and T."""
     _check_maps(p, t)
-    if not _on_cuda(p, t):
+    if not on_cuda(p, t):
         return db_step_forward_plain(p, t, k)
     p, t = _contiguous(p, "P"), _contiguous(t, "T")
     bhat = torch.empty_like(p)
@@ -129,7 +129,7 @@ def db_step_backward(g: torch.Tensor, bhat: torch.Tensor, k: float = 50.0):
     lie at any uniform element stride, as the gradient of the NHWC output's
     last channel does; other layouts are copied first."""
     _check_maps(g, bhat)
-    if not _on_cuda(g, bhat):
+    if not on_cuda(g, bhat):
         return db_step_backward_plain(g, bhat, k)
     bhat = _contiguous(bhat, "B̂")
     stride = uniform_stride(g)

@@ -7,51 +7,72 @@ per-image JSON. Modes: ``masks`` (prob/thresh masks ×255 as nested lists),
 ``masks_png`` (the same masks as base64 PNGs) and ``boxes`` (the device rect
 postprocess; only K box records per image leave the device).
 
-The model path is the plain fused-head module (the JAX package's
-``infer_mode="flax"``). The BN-folded and int8 forwards are not ported yet.
+``infer_mode`` selects the forward, under the JAX package's names:
+``"folded"`` (the default) the weight-exact BN-folded forward, ``"int8"``
+that with the wide convs int8 at dynamic scales, the fused head's conv1
+included (``models/quant_infer``; flagship resnet18 + FPN only), ``"flax"``
+the plain fused-head module. The folded modes serve box mode through the
+prob-only forward (the thresh branch is skipped) and the masks modes
+through the two-map one.
 """
 
 from __future__ import annotations
 
+import functools
 import io
 from typing import Any
 
 import numpy as np
 import torch
 
-from ..cli.common import NOT_PORTED, load_model
+from ..cli.common import (INFER_MODES, load_model, load_state_dict,
+                          make_folded_forward)
 from ..postprocess import DeviceBoxRepresenter
 from ..utils import CAFFE_MEAN, resolve_device, test_resize
 
 
 class DBTextDetectionHandler:
-    def __init__(self, model_path: str, infer_mode: str = "module",
+    def __init__(self, model_path: str, infer_mode: str = "folded",
                  device="cuda"):
         """The model is loaded from ``model_path`` at the first request (or
         by ``initialize``). The default device is CUDA; on a machine without
         a GPU, ``device="cpu"`` must be passed."""
-        if infer_mode != "module":
-            raise NotImplementedError(NOT_PORTED.format(infer_mode))
+        if infer_mode not in INFER_MODES:
+            raise ValueError(f"infer_mode {infer_mode!r} is not one of "
+                             f"{INFER_MODES}")
         self.device = resolve_device(device)
         self.model_path = model_path
+        self.infer_mode = infer_mode
         self.box_representer = DeviceBoxRepresenter()
         self._forward = None
+        self._forward_prob = None   # prob-only forward for box mode
         self.initialized = False
 
     def initialize(self) -> None:
-        model = load_model(self.model_path, device=self.device,
-                           fuse_head=True)
         mean = torch.tensor(CAFFE_MEAN, dtype=torch.float32,
                             device=self.device)
+        if self.infer_mode == "flax":
+            maps = load_model(self.model_path, device=self.device,
+                              fuse_head=True)
+            prob = None
+        else:
+            maps = make_folded_forward(
+                load_state_dict(self.model_path, fuse_head=True),
+                quantize=self.infer_mode == "int8", device=self.device)
+            prob = functools.partial(maps, prob_only=True)
 
-        @torch.inference_mode()
-        def forward(batch: np.ndarray) -> torch.Tensor:
-            # uint8 upload; the mean is subtracted on the device (4x less
-            # host-to-device traffic than float32)
-            x = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
-            return model(x.float() - mean)
+        def on_device(fwd):
+            @torch.inference_mode()
+            def forward(batch: np.ndarray) -> torch.Tensor:
+                # uint8 upload; the mean is subtracted on the device (4x
+                # less host-to-device traffic than float32)
+                x = torch.from_numpy(np.ascontiguousarray(batch)).to(
+                    self.device)
+                return fwd(x.float() - mean)
+            return forward
 
-        self._forward = forward
+        self._forward = on_device(maps)
+        self._forward_prob = prob and on_device(prob)
         self.initialized = True
 
     def preprocess(self, request: list[dict[str, Any]]) -> np.ndarray:
@@ -67,7 +88,12 @@ class DBTextDetectionHandler:
             imgs.append(test_resize(arr, size=640, pad=True)[None])
         return np.concatenate(imgs, axis=0)
 
-    def inference(self, img: np.ndarray) -> torch.Tensor:
+    def inference(self, img: np.ndarray, prob_only: bool = False
+                  ) -> torch.Tensor:
+        """The maps of a uint8 batch; ``prob_only`` takes the folded
+        modes' prob-only forward (the flax mode has none)."""
+        if prob_only and self._forward_prob is not None:
+            return self._forward_prob(img)
         return self._forward(img)
 
     def postprocess(self, data: torch.Tensor) -> list[dict]:
@@ -114,9 +140,11 @@ class DBTextDetectionHandler:
         if request is None:
             return None
         batch = self.preprocess(request)
-        preds = self.inference(batch)
         if mode == "boxes":
-            return self.postprocess_boxes(preds)
+            # only K box records per image leave the device
+            return self.postprocess_boxes(self.inference(batch,
+                                                         prob_only=True))
+        preds = self.inference(batch)
         if mode == "masks_png":
             return self.postprocess_png(preds)
         return self.postprocess(preds)

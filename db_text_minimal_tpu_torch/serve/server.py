@@ -8,7 +8,8 @@ concurrent requests of the same mode into one device call.
 Usage::
 
     python -m db_text_minimal_tpu_torch.serve.server --model_path model.pth \
-        --port 8080 [--model_name dbtext] [--device cuda]
+        --port 8080 [--model_name dbtext] [--device cuda] \
+        [--infer_mode folded|int8|flax]
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..cli.common import INFER_MODES
 from .handler import DBTextDetectionHandler
 
 MODES = ("boxes", "masks_png", "masks")
@@ -74,8 +76,10 @@ class _Batcher:
 
 def make_server(model_path: str, port: int = 8080,
                 model_name: str = "dbtext", handler=None,
-                max_batch: int = 8, device="cuda") -> ThreadingHTTPServer:
-    service = handler or DBTextDetectionHandler(model_path, device=device)
+                max_batch: int = 8, device="cuda",
+                infer_mode: str = "folded") -> ThreadingHTTPServer:
+    service = handler or DBTextDetectionHandler(
+        model_path, infer_mode=infer_mode, device=device)
     if not service.initialized:
         service.initialize()
     batcher = _Batcher(service, max_batch=max_batch)
@@ -126,9 +130,14 @@ def main(argv=None):
     parser.add_argument("--model_name", type=str, default="dbtext")
     parser.add_argument("--max_batch", type=int, default=8)
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--infer_mode", type=str, default="folded",
+                        choices=INFER_MODES,
+                        help="the forward: BN-folded (default), int8 with "
+                             "dynamic scales, or the plain module (flax)")
     args = parser.parse_args(argv)
     server = make_server(args.model_path, args.port, args.model_name,
-                         max_batch=args.max_batch, device=args.device)
+                         max_batch=args.max_batch, device=args.device,
+                         infer_mode=args.infer_mode)
     print(f"serving {args.model_name} on :{args.port}")
     server.serve_forever()
 

@@ -17,6 +17,10 @@ Both head layouts convert: ``DBHead`` (``binarize``/``thresh`` branches, keys
 ``segmentation_head.binarize.0.weight`` ...) and ``FusedDBHead`` (keys
 ``segmentation_head.conv1.weight``, ``segmentation_head.binarize_deconv1``
 ...).
+
+``quant_vars_from_jax`` carries the JAX package's BN-folded and int8 tree
+into the port's ``models.quant_infer`` tree, so that both packages run the
+same int8 weights and static scales.
 """
 
 from __future__ import annotations
@@ -94,3 +98,33 @@ def state_dict_from_jax(params: Mapping[str, Any],
             sd[f"{module}.{name}"] = torch.from_numpy(
                 np.ascontiguousarray(value).copy())
     return sd
+
+
+def quant_vars_from_jax(qvars: Mapping[str, Any]) -> dict:
+    """The JAX package's folded (and quantized) tree from
+    ``quant_infer.prepare_quant_params`` (numpy leaves, HWIO kernels) ->
+    the port's ``models.quant_infer`` tree (CPU tensors): float conv
+    kernels OIHW, int8 conv kernels OHWI (int8 stays int8), deconv kernels
+    as ``_kernel`` lays them out; ``bias``, ``eff_scale`` and ``act_scale``
+    as f32 tensors."""
+
+    def node(name: str, leaves: Mapping[str, Any]) -> dict:
+        out = {}
+        for key, value in leaves.items():
+            value = np.asarray(value)
+            if key == "kernel":
+                if value.dtype == np.int8:
+                    value = np.transpose(value, (3, 0, 1, 2))   # OHWI
+                else:
+                    value = _kernel(value, deconv="deconv" in name)
+            else:
+                value = value.astype(np.float32)
+            out[key] = torch.from_numpy(np.ascontiguousarray(value).copy())
+        return out
+
+    def walk(tree: Mapping[str, Any], name: str = "") -> dict:
+        if "kernel" in tree:
+            return node(name, tree)
+        return {k: walk(v, k) for k, v in tree.items()}
+
+    return walk(qvars)

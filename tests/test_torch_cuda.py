@@ -1,5 +1,6 @@
 """The kernels on the card against their plain PyTorch versions: K3-K8
-(CUDA) and K1, K2 forward and K2 backward (Triton).
+and P1 (CUDA) and K1, K2 forward and K2 backward (Triton); the int8
+forward on the card against the CPU.
 
 Needs an NVIDIA GPU, nvcc and Triton; skipped elsewhere. This file imports no JAX,
 so it runs on the GPU machine, which has none, without the repo's conftest:
@@ -13,6 +14,7 @@ import torch
 
 from db_text_minimal_tpu_torch.ops import cc
 from db_text_minimal_tpu_torch.ops import db_step as D
+from db_text_minimal_tpu_torch.ops import int8 as I
 from torch_scenes import SCENES
 
 pytestmark = pytest.mark.cuda
@@ -241,3 +243,117 @@ def test_db_step_autograd_on_the_card(device):
     # torch's sigmoid backward rounds g·σ(1−σ)·k, K2 g·(k·σ·(1−σ))
     torch.testing.assert_close(gp, rp, rtol=0, atol=1e-5)
     torch.testing.assert_close(gt, rt, rtol=0, atol=1e-5)
+
+
+def _epilogue_inputs(m, c, device, seed=0):
+    """int32 accumulators over the range of a 3x3 conv of 256 int8
+    channels (|acc| <= 2304 * 127^2 < 2^26), scales and biases as a
+    calibrated conv has them."""
+    g = torch.Generator().manual_seed(seed)
+    acc = torch.randint(-2 ** 25, 2 ** 25, (m, c), generator=g,
+                        dtype=torch.int32)
+    scale = torch.rand(c, generator=g) * 2e-6
+    bias = torch.randn(c, generator=g) * 0.5
+    return acc.to(device), scale.to(device), bias.to(device)
+
+
+@pytest.mark.parametrize("c", [128, 256, 512])
+@pytest.mark.parametrize("form", ["f32_relu", "f32", "int8"])
+def test_int8_epilogue_matches_plain_version(c, form, device):
+    """P1 bit for bit against its plain version on the card, at the
+    forward's channel counts and at M = 4099 (the grid-stride loop's last
+    pass is ragged)."""
+    acc, scale, bias = _epilogue_inputs(4099, c, device, seed=c)
+    relu = form != "f32"
+    out_scale = (torch.tensor(4.0 / 127.0, device=device) if form == "int8"
+                 else None)
+    I.reset_launches()
+    got = I.int8_epilogue(acc, scale, bias, relu, out_scale)
+    torch.cuda.synchronize()
+    ref = I.int8_epilogue_plain(acc, scale, bias, relu, out_scale)
+    assert got.dtype == ref.dtype == (torch.int8 if form == "int8"
+                                      else torch.float32)
+    assert torch.equal(got, ref)
+    assert I.LAUNCHES["int8_epilogue"] == 1
+    assert I.LAUNCHES["int8_epilogue_int8" if form == "int8"
+                      else "int8_epilogue_f32"] == 1
+    if form == "int8":   # relu, then clipped at 127
+        assert set(torch.unique(got).tolist()) >= {0, 127}
+
+
+def test_int8_epilogue_refuses_on_the_card(device):
+    acc, scale, bias = _epilogue_inputs(64, 132, device)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        I.int8_epilogue(acc[:, :130].contiguous(), scale[:130], bias[:130],
+                        True)
+    with pytest.raises(ValueError, match="contiguous"):
+        I.int8_epilogue(acc[:, :128], scale[:128], bias[:128], True)
+    with pytest.raises(ValueError, match="aligned"):
+        I.int8_epilogue(acc[:, :128].contiguous(), scale[1:129],
+                        bias[:128], True)
+
+
+@pytest.mark.parametrize("k,stride,pad,cin", [(3, 1, 1, 256), (3, 2, 1, 64),
+                                              (1, 2, 0, 64), (3, 1, 1, 512)])
+def test_int8_conv2d_on_the_card_matches_the_cpu(k, stride, pad, cin,
+                                                 device):
+    """im2col and ``torch._int_mm`` on the card (cuBLASLt's int8 path) at
+    the forward's depths K = k*k*Cin, exact against the CPU."""
+    g = torch.Generator().manual_seed(k * cin + stride)
+    q = torch.randint(-127, 128, (2, 20, 20, cin), generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (256, k * k * cin), generator=g,
+                      dtype=torch.int8)
+    ref = I.int8_conv2d(q, w, k, stride, pad)
+    got = I.int8_conv2d(q.to(device), w.to(device), k, stride, pad)
+    assert torch.equal(got.cpu(), ref)
+
+
+def _quant_tree(seed=0):
+    from db_text_minimal_tpu_torch.models import DBTextModel
+    from db_text_minimal_tpu_torch.models import quant_infer as Q
+
+    model = DBTextModel(head_name="FusedDBHead")
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return Q.prepare_quant_params(model.state_dict(), skip=())
+
+
+@pytest.mark.parametrize("float_convs", ["f64", "f32"])
+def test_int8_forward_on_the_card_matches_the_cpu(float_convs, device):
+    """The calibrated int8 forward (skip=()) on the card against the CPU,
+    the float convs in f64 or in f32 (TF32 off) on both: with f64 every
+    int8 activation is equal and the maps within 1e-6; with f32 the first
+    int8 conv's input agrees at >= 99.9 % of positions. Fused and unfused
+    forwards are bit-equal on the card; P1 launches 7 times in its int8
+    form and 10 in its f32 form."""
+    from db_text_minimal_tpu_torch.models import quant_infer as Q
+
+    torch.backends.cudnn.allow_tf32 = False
+    dtype = torch.float64 if float_convs == "f64" else torch.float32
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 128, 128, 3)
+                         .astype(np.float32) * 255 - 115)
+    qv = Q.calibrate_activation_scales(_quant_tree(), [x[:1]],
+                                       compute_dtype=dtype)
+    runs = []
+    for dev, tree in (("cpu", qv), (device, Q.tree_to(qv, device))):
+        inputs = []
+        I.reset_launches()
+        with torch.inference_mode():
+            out = Q.quant_dbnet_forward(tree, x.to(dev), compute_dtype=dtype,
+                                        int8_inputs=inputs)
+        runs.append((out.cpu(), [q.cpu() for q in inputs],
+                     dict(I.LAUNCHES)))
+    (ref, ref_q, _), (got, got_q, launches) = runs
+    assert launches["int8_epilogue_int8"] == 7
+    assert launches["int8_epilogue_f32"] == 10
+    assert len(got_q) == len(ref_q) == 17
+    if float_convs == "f64":
+        assert all(torch.equal(a, b) for a, b in zip(got_q, ref_q))
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+    else:
+        assert (got_q[0] == ref_q[0]).float().mean().item() >= 0.999
+    with torch.inference_mode():
+        tree = Q.tree_to(qv, device)
+        fused = Q.quant_dbnet_forward(tree, x.to(device))
+        plain = Q.quant_dbnet_forward(tree, x.to(device), fuse=False)
+    assert torch.equal(fused, plain)

@@ -526,6 +526,27 @@ def test_make_eval_writes_the_jax_pickles(pth, eval_dir, tmp_path):
     _assert_pred_structure(ref_preds, 2)
 
 
+@pytest.mark.parametrize("mode", ["folded", "int8"])
+def test_make_eval_runs_the_folded_forwards(mode, pth, eval_dir, tmp_path):
+    """``--infer_mode folded|int8`` reaches the BN-folded prob-only
+    forward: the same pickles' structure, image names and GTs as the JAX
+    exporter writes, in the single and batched paths."""
+    ref_out = tmp_path / "jax"
+    os.makedirs(ref_out)
+    argv = [a.replace("MODEL", pth) for a in _eval_argv(eval_dir, ref_out, 1)]
+    jmake_eval.main(jmake_eval.load_args(argv))
+    _, ref_fns, ref_gts = _load(ref_out)
+    for bs in (1, 2):
+        out = tmp_path / f"port{bs}"
+        os.makedirs(out)
+        argv = [a.replace("MODEL", pth) for a in _eval_argv(eval_dir, out, bs)]
+        make_eval.main(make_eval.load_args(
+            argv + ["--device", "cpu", "--infer_mode", mode]))
+        preds, fns, gts = _load(out)
+        _assert_pred_structure(preds, 2)
+        assert fns == ref_fns and gts == ref_gts
+
+
 def test_make_eval_representer_choice():
     """DeviceBoxRepresenter only in rect mode with device boxes, as in the
     JAX make_eval; polygon mode takes the host representer."""

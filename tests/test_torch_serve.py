@@ -1,5 +1,7 @@
 """The PyTorch port's serving handler and server against the JAX package's
-handler (``infer_mode="flax"``, the plain fused-head path) on one .pth."""
+handler on one .pth: the plain fused-head forward (``infer_mode="flax"``),
+the BN-folded forward (``"folded"``, the default of both) and the int8 one
+(``"int8"``); and ``build_inference_forward`` in each mode."""
 
 import functools
 import io
@@ -13,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from db_text_minimal_tpu.cli import common as jcommon
 from db_text_minimal_tpu.models import DBTextModel as JaxDBTextModel
 from db_text_minimal_tpu.ops.pallas import cc as jcc
 from db_text_minimal_tpu.serve.handler import \
     DBTextDetectionHandler as JaxHandler
+from db_text_minimal_tpu_torch.cli.common import build_inference_forward
+from db_text_minimal_tpu_torch.serve import server as server_mod
 from db_text_minimal_tpu_torch.serve.handler import DBTextDetectionHandler
 from db_text_minimal_tpu_torch.serve.server import make_server
 from db_text_minimal_tpu_torch.weights import state_dict_from_jax
@@ -49,7 +54,15 @@ def request_bytes():
 @pytest.fixture(scope="module")
 def handlers(pth):
     return (JaxHandler(pth, infer_mode="flax"),
-            DBTextDetectionHandler(pth, device="cpu"))
+            DBTextDetectionHandler(pth, infer_mode="flax", device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def folded_handlers(pth):
+    """(JAX, port) handler pairs of the folded modes, made once."""
+    return {mode: (JaxHandler(pth, infer_mode=mode),
+                   DBTextDetectionHandler(pth, infer_mode=mode, device="cpu"))
+            for mode in ("folded", "int8")}
 
 
 def test_masks_mode_matches_jax(handlers, request_bytes):
@@ -88,10 +101,119 @@ def test_masks_png_mode_decodes_to_masks(handlers, request_bytes):
         np.testing.assert_array_equal(img, np.array(masks[key], np.uint8))
 
 
+def test_default_infer_mode_is_folded(pth):
+    """Started as the JAX handler is, the port serves the same forward."""
+    assert (DBTextDetectionHandler(pth, device="cpu").infer_mode
+            == JaxHandler(pth).infer_mode == "folded")
+    with pytest.raises(ValueError, match="module"):
+        DBTextDetectionHandler(pth, infer_mode="module", device="cpu")
+
+
+# masks: the largest uint8 level gap and the share of pixels more than one
+# level apart. Folded: one level (float noise across a x255 truncation).
+# int8 (dynamic scales): float noise moves an int8 activation across a
+# rounding boundary now and then, and random weights carry each flip on;
+# measured on this image: 0.64 % of pixels more than a level apart, a mean
+# gap of 1.3 levels
+MASK_TOLERANCE = {"folded": (1, 0.0, 0.02), "int8": (255, 0.01, 2.0)}
+
+
 @pytest.mark.parametrize("mode", ["folded", "int8"])
-def test_unported_infer_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        DBTextDetectionHandler("x.pth", infer_mode=mode, device="cpu")
+def test_infer_modes_masks_match_jax(mode, folded_handlers, request_bytes):
+    """Masks mode (the two-map forward) against the JAX handler's same
+    mode."""
+    jax_handler, handler = folded_handlers[mode]
+    ref = jax_handler.handle(request_bytes, mode="masks")
+    got = handler.handle(request_bytes, mode="masks")
+    worst, share, mean = MASK_TOLERANCE[mode]
+    for key in ("prob_mask", "thresh_mask"):
+        a, b = np.array(got[0][key]), np.array(ref[0][key])
+        assert a.shape == b.shape == (640, 640)
+        gap = np.abs(a.astype(int) - b)
+        assert gap.max() <= worst
+        assert (gap > 1).mean() <= share
+        assert gap.mean() <= mean
+
+
+@pytest.mark.parametrize("mode", ["folded", "int8"])
+def test_infer_modes_boxes_match_jax(mode, folded_handlers, request_bytes,
+                                     monkeypatch):
+    """Box mode (the prob-only forward, then the device postprocess)
+    against the JAX handler's same mode, with its connected-components
+    round cap lifted as in ``test_boxes_mode_matches_jax``: the same boxes,
+    scores within 1e-4 (folded) and 1e-3 (int8; measured 4.1e-4)."""
+    monkeypatch.setattr(jcc, "device_boxes",
+                        functools.partial(jcc.device_boxes, num_iters=4096))
+    jax_handler, handler = folded_handlers[mode]
+    ref = jax_handler.handle(request_bytes, mode="boxes")
+    got = handler.handle(request_bytes, mode="boxes")
+    assert len(got[0]["boxes"]) == len(ref[0]["boxes"]) > 0
+    np.testing.assert_allclose(got[0]["boxes"], ref[0]["boxes"], atol=1)
+    np.testing.assert_allclose(got[0]["scores"], ref[0]["scores"],
+                               atol=1e-4 if mode == "folded" else 1e-3)
+
+
+def test_box_mode_takes_the_prob_only_forward(folded_handlers,
+                                              request_bytes):
+    """The folded handler's box-mode forward returns the prob map alone,
+    equal to the first map of the masks-mode forward."""
+    handler = folded_handlers["folded"][1]
+    batch = handler.preprocess(request_bytes)
+    prob = handler.inference(batch, prob_only=True)
+    both = handler.inference(batch)
+    assert prob.shape == (1, 640, 640, 1) and both.shape == (1, 640, 640, 2)
+    assert torch.equal(prob[..., 0], both[..., 0])
+
+
+@pytest.mark.parametrize("mode", ["folded", "int8"])
+def test_build_inference_forward_matches_jax(mode, pth):
+    """``build_inference_forward`` in each folded mode against the JAX one on a
+    small batch: prob-only (N, H, W, 1) on both sides; folded within 5e-5,
+    int8 (dynamic scales) within a mean of 0.01."""
+    x = np.random.RandomState(2).rand(2, 64, 64, 3).astype(np.float32) \
+        * 2 - 1
+    tree, forward = build_inference_forward(pth, infer_mode=mode,
+                                            device="cpu")
+    assert tree["params"]["backbone"]["layer3_0"]["conv1"]["kernel"].dtype \
+        == (torch.int8 if mode == "int8" else torch.float32)
+    _, variables, jforward = jcommon.build_inference_forward(pth,
+                                                             infer_mode=mode)
+    ref = np.asarray(jforward(variables, jnp.asarray(x)))
+    got = forward(x).numpy()
+    assert got.shape == ref.shape == (2, 64, 64, 1)
+    if mode == "folded":
+        np.testing.assert_allclose(got, ref, atol=5e-5)
+    else:
+        assert np.abs(got - ref).mean() < 0.01
+
+
+def test_server_passes_infer_mode(monkeypatch):
+    """``--infer_mode`` (default folded) reaches ``make_server`` and from
+    there the handler."""
+    made = []
+
+    class Recorder:
+        initialized = True
+
+        def __init__(self, model_path, infer_mode="folded", device="cuda"):
+            made.append((model_path, infer_mode, device))
+
+    class NoServer:
+        def serve_forever(self):
+            pass
+
+    monkeypatch.setattr(server_mod, "DBTextDetectionHandler", Recorder)
+    server = make_server("m.pth", port=0, infer_mode="int8", device="cpu")
+    server.server_close()
+    assert made == [("m.pth", "int8", "cpu")]
+    calls = []
+    monkeypatch.setattr(server_mod, "make_server",
+                        lambda *a, **kw: calls.append(kw) or NoServer())
+    server_mod.main(["--model_path", "m.pth", "--device", "cpu"])
+    server_mod.main(["--model_path", "m.pth", "--infer_mode", "flax"])
+    assert [kw["infer_mode"] for kw in calls] == ["folded", "flax"]
+    with pytest.raises(SystemExit):
+        server_mod.main(["--model_path", "m.pth", "--infer_mode", "bf16"])
 
 
 def test_server_routes_modes_to_the_handler():
