@@ -21,12 +21,18 @@ Phases, one output line each (or more), stopping at the first failure:
              4x1x640x640, the backward's gradient at the element stride of
              the NHWC output's last channel); time each and its plain
              version, and the rect and polygon drivers (K9 device_boxes,
-             K7 device_poly_stats) on the card and on the CPU.
+             K7 device_poly_stats) on the card and on the CPU. Then K3 bit
+             for bit against its plain version on its hard masks (full,
+             empty, checkerboard, diagonals through every tile corner,
+             serpentines, noise at densities 0.41, 0.5, 0.59), 8- and
+             4-connected, at 8x640x640 and a ragged 8x637x641. Every row
+             logs the card's time split by launch.
 3. serve   - serve one batch of 8 synthetic 640x480 images through the
              port's handler in box mode, infer_mode "flax": resnet18 + FPN
              (inner 256) + FusedDBHead, fp32, weights drawn from a seed and
              loaded from a .pth with the reference's key names. Every kernel
-             of the rect path (K3-K6) must launch. Then time the batch.
+             of the rect path (K3-K6) must launch. Then time the batch, and
+             K3 on the served maps' masks (both connectivities).
 4. quant   - the BN-folded and int8 serving path on the same .pth and
              batch: the handler in "folded" mode (its default; P1 must not
              launch) and in "int8" mode (dynamic scales, 17 int8 convs: P1
@@ -121,7 +127,9 @@ POLY_PATH = ("connected_components_8", "connected_components_4",
              "compact_slots", "hole_stats", "bbox_stats", "pack_bits")
 KERNEL_IDS = {"fused_db_step": "K1", "db_step_forward": "K2",
               "db_step_backward": "K2", "connected_components_8": "K3",
-              "connected_components_4": "K3", "compact_slots": "K4",
+              "connected_components_4": "K3",
+              "connected_components_8_served": "K3",
+              "connected_components_4_served": "K3", "compact_slots": "K4",
               "rotated_boxes": "K5", "hole_stats": "K6", "bbox_stats": "K7",
               "pack_bits": "K7", "pack_bits_w100": "K7", "fast_boxes": "K8",
               "int8_epilogue_f32": "P1", "int8_epilogue_int8": "P1"}
@@ -278,15 +286,28 @@ def kernel_row(name, route, source, replaces, err, tol, kernel, plain,
         raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
     ms = timed(kernel, 20)
     plain_ms = plain if isinstance(plain, float) else timed(plain, 3)
-    dev_ms, _ = device_kernels(kernel, 20)
+    dev_ms, by_name = device_kernels(kernel, 20)
+    split = {short_name(k): v for k, v in by_name.items()}
     bound_ms, bound_by = bound(bytes_moved, ops)
     log(f"kernel {name}: max_abs_err {err} (tolerance {tol}), "
         f"{ms:.4f} ms, on the card {dev_ms:.4f} ms, plain {plain_ms:.3f} "
-        f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"ms, bound {bound_ms:.4f} ms ({bound_by}); on the card by launch "
+        f"ms {json.dumps({k: round(v, 4) for k, v in split.items()})}")
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": float(err),
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "ms": ms, "device_ms": dev_ms, "device_split": split,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def short_name(kernel: str) -> str:
+    """A profiler kernel name without its namespace, return type and
+    arguments: "(anonymous namespace)::k3_local(unsigned char const*, ...)"
+    -> "k3_local"."""
+    name = kernel.replace("(anonymous namespace)::", "").split("(")[0]
+    head, bracket, args = name.partition("<")
+    name = head.split("::")[-1] + bracket + args
+    return name.removeprefix("void ").strip() or kernel[:60]
 
 
 def phase_kernels() -> list[dict]:
@@ -367,6 +388,81 @@ def phase_kernels() -> list[dict]:
            fg_px * (12 + candidates * 10))
     log(f"kernels ok: {int(valid.sum())} valid components over {N} maps "
         f"of {SIZE}x{SIZE}, {fg_px} foreground pixels")
+    return rows
+
+
+# K3's hard masks, the same as tests/torch_scenes.K3_SWEEP: the kernel works
+# on tiles of 32 rows by 128 columns, so the diagonals run through every
+# tile corner both ways, and the serpentines cross every tile border with
+# 1-px runs; noise near the percolation thresholds
+K3_SWEEP = ("ones", "zeros", "checkerboard", "diagonals", "antidiagonals",
+            "serpentine_rows", "serpentine_cols", "noise_0.41", "noise_0.5",
+            "noise_0.59")
+
+
+def serpentine_mask(h: int, w: int) -> np.ndarray:
+    """1-px corridors (even rows) between 1-px walls (odd rows), each wall
+    open at one end, the ends alternating: one path through the map."""
+    m = np.zeros((h, w), bool)
+    m[0::2] = True
+    m[1::4, -1] = True
+    m[3::4, 0] = True
+    return m
+
+
+def k3_sweep_mask(name: str, h: int, w: int, seed: int) -> np.ndarray:
+    ys, xs = np.mgrid[0:h, 0:w]
+    if name.startswith("noise_"):
+        return np.random.RandomState(seed).rand(h, w) < float(name[6:])
+    if name == "serpentine_cols":
+        return serpentine_mask(w, h).T.copy()
+    return {"ones": lambda: np.ones((h, w), bool),
+            "zeros": lambda: np.zeros((h, w), bool),
+            "checkerboard": lambda: (ys + xs) % 2 == 0,
+            "diagonals": lambda: (xs - ys) % 32 == 0,
+            "antidiagonals": lambda: (xs + ys) % 32 == 31,
+            "serpentine_rows": lambda: serpentine_mask(h, w)}[name]()
+
+
+def phase_k3_sweep() -> None:
+    """K3 against its plain version, bit for bit, both connectivities, on
+    its hard masks at 8x640x640 and at a ragged 8x637x641 (tiles cut on
+    both axes), each image's noise from its own seed."""
+    dev = torch.device("cuda")
+    checked = 0
+    for h, w in ((SIZE, SIZE), (637, 641)):
+        for name in K3_SWEEP:
+            mask = torch.from_numpy(np.stack([
+                k3_sweep_mask(name, h, w, SEED + i) for i in range(N)]))
+            mask = mask.to(dev)
+            for conn in (8, 4):
+                if not torch.equal(cc.connected_components(mask, conn),
+                                   cc.connected_components_plain(mask, conn)):
+                    raise AssertionError(
+                        f"K3 sweep: {name} at {N}x{h}x{w}, {conn}-connected, "
+                        f"differs from the plain version")
+                checked += 1
+    log(f"k3 sweep ok: {checked} cases ({len(K3_SWEEP)} masks, 8- and "
+        f"4-connected, at {N}x{SIZE}x{SIZE} and {N}x637x641) equal to the "
+        f"plain version bit for bit")
+
+
+def phase_served_k3(preds: torch.Tensor) -> list[dict]:
+    """K3 rows on the served batch's masks at the handler's threshold 0.3:
+    the 8-connected foreground and the 4-connected background, as the rect
+    and polygon paths label them."""
+    mask = preds[..., 0] > 0.3
+    px = mask.numel()
+    rows = []
+    for conn, m in ((8, mask), (4, ~mask)):
+        err = (cc.connected_components(m, conn)
+               - cc.connected_components_plain(m, conn)).abs().max().item()
+        rows.append(kernel_row(
+            f"connected_components_{conn}_served", "cuda", SRC, f"{JAX_CC}:64",
+            err, 0, lambda m=m, conn=conn: cc.connected_components(m, conn),
+            lambda m=m, conn=conn: cc.connected_components_plain(m, conn),
+            px * (1 + 4), px * conn))
+    log(f"served k3 ok: {int(mask.sum())} of {px} pixels set over {N} maps")
     return rows
 
 
@@ -1171,11 +1267,13 @@ def main() -> int:
         phase_build()
         int8_rows = phase_int8_kernels()
         rows = phase_kernels()
+        phase_k3_sweep()
         poly_rows = phase_poly_kernels()
         phase_drivers()
         db_rows = phase_db_step_kernels()
         with tempfile.TemporaryDirectory() as workdir:
             launches, pth, preds, flax_ms = phase_serve(workdir)
+            rows += phase_served_k3(preds)
             quant = phase_quant(pth, flax_ms)
             phase_check_quant(preds, quant)
             p1_launches = quant["launches"]
@@ -1191,7 +1289,7 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches[row["name"].removesuffix("_served")]
         row["launches_in"] = f"serve, box mode: one batch of {N}"
     for row in poly_rows:
         if row["name"] != "fast_boxes":

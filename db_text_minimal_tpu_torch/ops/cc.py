@@ -3,8 +3,9 @@
 Port of ``db_text_minimal_tpu/ops/pallas/cc.py``. Kernels written by hand
 in CUDA for Hopper (``csrc/cc.cu``) carry it:
 
-- K3 ``connected_components`` (cc.py:63-111): union-find labelling, label =
-  linear index of the component's minimum pixel, background -1.
+- K3 ``connected_components`` (cc.py:63-111): run-based union-find
+  labelling, label = linear index of the component's minimum pixel,
+  background -1.
 - K4 ``compact_slots`` (cc.py:114-144): slot of each pixel = raster rank of
   its component's root, overflow and background in slot K.
 - K5 ``rotated_boxes`` (cc.py:181-320 with ``_rect_corners``): per-slot

@@ -17,7 +17,8 @@ import torch
 
 from db_text_minimal_tpu.ops.pallas import cc as jcc
 from db_text_minimal_tpu_torch.ops import cc
-from torch_scenes import SCENES, corner_tol, score_tol
+from torch_scenes import (K3_SWEEP, SCENES, corner_tol, k3_sweep_mask,
+                          score_tol)
 
 torch.set_num_threads(1)
 
@@ -59,6 +60,21 @@ def test_random_masks_match_jax(shape, density):
             jnp.asarray(m, jnp.int32), num_iters=4096, connectivity=conn))
         got = cc.connected_components(_t(m), conn)[0].numpy()
         np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("connectivity", [8, 4])
+@pytest.mark.parametrize("name", K3_SWEEP)
+def test_plain_labels_match_jax_on_the_kernel_sweep(name, connectivity):
+    """K3's plain version, the yardstick the CUDA kernel is held to on the
+    card, against the JAX labelling run to convergence on the same hard
+    masks (full, empty, checkerboard, diagonals through tile corners,
+    serpentines, noise near the percolation thresholds), exact."""
+    mask = k3_sweep_mask(name, 70, 97)
+    ref = np.asarray(jcc.connected_components(
+        jnp.asarray(mask, jnp.int32), num_iters=4096,
+        connectivity=connectivity))
+    got = cc.connected_components_plain(_t(mask), connectivity)
+    np.testing.assert_array_equal(got[0].numpy(), ref)
 
 
 @pytest.mark.parametrize("scene", sorted(SCENES))

@@ -15,7 +15,7 @@ import torch
 from db_text_minimal_tpu_torch.ops import cc
 from db_text_minimal_tpu_torch.ops import db_step as D
 from db_text_minimal_tpu_torch.ops import int8 as I
-from torch_scenes import SCENES
+from torch_scenes import K3_SWEEP, SCENES, k3_sweep_mask
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +93,24 @@ def test_noise_matches_plain_version(shape, density, device):
     torch.testing.assert_close(out[0][valid], ref[0][valid], rtol=0,
                                atol=1e-3)
     torch.testing.assert_close(out[2], ref[2], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(3, 96, 384), (2, 65, 257)])
+@pytest.mark.parametrize("name", K3_SWEEP)
+def test_connected_components_sweep_matches_plain_version(name, shape,
+                                                          device):
+    """K3 on its hard masks, both connectivities, bit for bit: whole and
+    ragged tiles (32 x 128), each image's noise from its own seed."""
+    n, h, w = shape
+    mask = torch.from_numpy(np.stack([k3_sweep_mask(name, h, w, seed=i)
+                                      for i in range(n)])).to(device)
+    cc.reset_launches()
+    for conn in (8, 4):
+        labels = cc.connected_components(mask, conn)
+        assert labels.dtype == torch.int32
+        assert torch.equal(labels, cc.connected_components_plain(mask, conn))
+    assert cc.LAUNCHES["connected_components_8"] == 1
+    assert cc.LAUNCHES["connected_components_4"] == 1
 
 
 def test_device_boxes_on_the_card_match_the_cpu(device):

@@ -271,6 +271,43 @@ def test_adam_update_on_carried_gradients_matches_optax(step_pair):
         assert not torch.equal(param.detach(), before[name]), name
 
 
+def test_amsgrad_gap_between_torch_and_optax():
+    """A fault of the JAX package, kept as measured (ROADMAP §3): with
+    ``optimizer.amsgrad`` its ``optax.scale_by_amsgrad`` keeps the running
+    max of the bias-corrected second moment, torch's Adam (the port's, and
+    the reference's) the max of the raw moment, bias-corrected after. One
+    parameter from 0, gradients 1, 0, 0, 0.5, -0.2 at lr 0.005, each
+    package's own optimizer, the JAX one with the rate applied per step as
+    its train step does. Step 1 agrees; the port's rule stays torch's."""
+    grads = [1.0, 0.0, 0.0, 0.5, -0.2]
+    jcfg = jax_default_config()
+    jcfg.optimizer.amsgrad = True
+    tx = jax_trainer.make_optimizer(jcfg)
+    params = {"w": jnp.zeros((), jnp.float32)}
+    opt_state = tx.init(params)
+    cfg = default_config()
+    cfg.optimizer.amsgrad = True
+    model = torch.nn.Module()
+    model.w = torch.nn.Parameter(torch.zeros(()))
+    optimizer = T.make_optimizer(cfg, model)
+    assert optimizer.param_groups[0]["amsgrad"]
+    gaps = []
+    for g in grads:
+        updates, opt_state = tx.update({"w": jnp.float32(g)}, opt_state,
+                                       params)
+        params = optax.apply_updates(
+            params, jax.tree.map(lambda u: -jnp.float32(LR) * u, updates))
+        model.w.grad = torch.tensor(g)
+        T.set_lr(optimizer, LR)
+        optimizer.step()
+        gaps.append(abs(model.w.item() - float(params["w"])))
+    assert gaps[0] < 1e-7      # they place eps apart: f32 noise
+    # torch's rule by hand after step 5 (step 2: -0.0083486)
+    np.testing.assert_allclose(model.w.item(), -0.016313158, rtol=1e-5)
+    np.testing.assert_allclose([gaps[1], gaps[4]], [9.8e-4, 4.6e-3],
+                               rtol=0.02)
+
+
 # --------------------------------------------------- the epoch loop --------
 
 def _cfg(root, **metric):

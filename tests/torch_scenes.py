@@ -91,3 +91,41 @@ def corner_tol(scene):
 
 def score_tol(scene):
     return {"serpentine": 2e-4}.get(scene, 1e-5)
+
+
+# The hard masks of K3 (connected components), as (H, W) bool, shared by the
+# CPU test that holds K3's plain version to the JAX labelling and the card
+# test that holds the kernel to its plain version. The kernel works on tiles
+# of 32 rows by 128 columns, so the diagonals run through every tile corner
+# both ways, and the serpentines cross every tile border with 1-px runs.
+K3_SWEEP = ("ones", "zeros", "checkerboard", "diagonals", "antidiagonals",
+            "serpentine_rows", "serpentine_cols", "noise_0.41", "noise_0.5",
+            "noise_0.59")
+
+
+def _serpentine(h, w):
+    """1-px corridors (even rows) between 1-px walls (odd rows), each wall
+    open at one end, the ends alternating: one path through the map."""
+    m = np.zeros((h, w), bool)
+    m[0::2] = True
+    m[1::4, -1] = True
+    m[3::4, 0] = True
+    return m
+
+
+def k3_sweep_mask(name, h, w, seed=0):
+    ys, xs = np.mgrid[0:h, 0:w]
+    if name.startswith("noise_"):
+        return np.random.RandomState(seed).rand(h, w) < float(name[6:])
+    if name == "serpentine_cols":
+        return _serpentine(w, h).T.copy()
+    return {"ones": lambda: np.ones((h, w), bool),
+            "zeros": lambda: np.zeros((h, w), bool),
+            # one component 8-connected, one per pixel 4-connected
+            "checkerboard": lambda: (ys + xs) % 2 == 0,
+            # lines through the pixel pairs (y, x) = (32a - 1, 128b - 1),
+            # (32a, 128b) and (32a - 1, 128b), (32a, 128b - 1): each line
+            # one component, joined across tile corners only
+            "diagonals": lambda: (xs - ys) % 32 == 0,
+            "antidiagonals": lambda: (xs + ys) % 32 == 31,
+            "serpentine_rows": lambda: _serpentine(h, w)}[name]()
