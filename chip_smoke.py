@@ -25,14 +25,18 @@ Phases, one output line each (or more), stopping at the first failure:
              for bit against its plain version on its hard masks (full,
              empty, checkerboard, diagonals through every tile corner,
              serpentines, noise at densities 0.41, 0.5, 0.59), 8- and
-             4-connected, at 8x640x640 and a ragged 8x637x641. Every row
-             logs the card's time split by launch.
+             4-connected, at 8x640x640 and a ragged 8x637x641, and K5
+             against its plain version along the rect path (K3, K4, K6
+             by their kernels) on the same masks and on maps of rotated
+             bars (0, 90, +-45 degrees, small angles near 0), at both
+             sizes. Every row logs the card's time split by launch.
 3. serve   - serve one batch of 8 synthetic 640x480 images through the
              port's handler in box mode, infer_mode "flax": resnet18 + FPN
              (inner 256) + FusedDBHead, fp32, weights drawn from a seed and
              loaded from a .pth with the reference's key names. Every kernel
-             of the rect path (K3-K6) must launch. Then time the batch, and
-             K3 on the served maps' masks (both connectivities).
+             of the rect path (K3-K6) must launch. Then time the batch, K3
+             on the served maps' masks (both connectivities) and K5 on
+             their slot maps.
 4. quant   - the BN-folded and int8 serving path on the same .pth and
              batch: the handler in "folded" mode (its default; P1 must not
              launch) and in "int8" mode (dynamic scales, 17 int8 convs: P1
@@ -130,7 +134,8 @@ KERNEL_IDS = {"fused_db_step": "K1", "db_step_forward": "K2",
               "connected_components_4": "K3",
               "connected_components_8_served": "K3",
               "connected_components_4_served": "K3", "compact_slots": "K4",
-              "rotated_boxes": "K5", "hole_stats": "K6", "bbox_stats": "K7",
+              "rotated_boxes": "K5", "rotated_boxes_served": "K5",
+              "hole_stats": "K6", "bbox_stats": "K7",
               "pack_bits": "K7", "pack_bits_w100": "K7", "fast_boxes": "K8",
               "int8_epilogue_f32": "P1", "int8_epilogue_int8": "P1"}
 
@@ -366,29 +371,54 @@ def phase_kernels() -> list[dict]:
            lambda: cc.hole_stats_plain(mask, keyed, bg_keyed, prob, K),
            px * (1 + 4 + 4) + hole_px * 4 + N * K * 8, bg_px * 8 + px)
 
-    # K5: valid exact; corners/sides within 1e-3 px and scores within 1e-6,
-    # for the same f64-sum reason; the angle picks match the plain version
+    # K5, held to its plain version on the same inputs (check_k5)
     out = cc.rotated_boxes(prob, keyed, valid_root, *hole, K)
     out_p = cc.rotated_boxes_plain(prob, keyed, valid_root, *hole_p, K)
-    valid = out_p[3]
-    if not torch.equal(out[3], valid):
-        raise AssertionError("rotated_boxes: valid slots differ")
-    err = max((out[0] - out_p[0])[valid].abs().max().item(),
-              (out[1] - out_p[1])[valid].abs().max().item())
-    score_err = (out[2] - out_p[2]).abs().max().item()
-    if score_err > 1e-6:
-        raise AssertionError(f"rotated_boxes: score error {score_err}")
-    fg_px = int((keyed < K).sum().item())
-    candidates = sum(len(o) for o in cc.stage_offsets())
+    err = check_k5(out, out_p, "rotated_boxes")
     record("rotated_boxes", 184, err, 1e-3,
            lambda: cc.rotated_boxes(prob, keyed, valid_root, *hole, K),
            lambda: cc.rotated_boxes_plain(prob, keyed, valid_root, *hole_p,
                                           K),
-           px * (4 + 4) + N * K * 54,
-           fg_px * (12 + candidates * 10))
-    log(f"kernels ok: {int(valid.sum())} valid components over {N} maps "
-        f"of {SIZE}x{SIZE}, {fg_px} foreground pixels")
+           *k5_work(keyed, SIZE))
+    log(f"kernels ok: {int(out_p[3].sum())} valid components over {N} maps "
+        f"of {SIZE}x{SIZE}, {int((keyed < K).sum())} foreground pixels")
     return rows
+
+
+def check_k5(out, ref, what: str) -> float:
+    """K5 against its plain version: valid slots exact, scores within 1e-6
+    (the prob sums are f64 sums in atomic order, rounded to f32), corners
+    and sides of the valid slots within 1e-3 px (the angle picks match).
+    Returns the corner and side error."""
+    valid = ref[3]
+    if not torch.equal(out[3], valid):
+        raise AssertionError(f"{what}: valid slots differ")
+    score_err = (out[2] - ref[2]).abs().max().item()
+    if score_err > 1e-6:
+        raise AssertionError(f"{what}: score error {score_err}")
+    gaps = torch.cat([(out[0] - ref[0])[valid].flatten(),
+                      (out[1] - ref[1])[valid].flatten()])
+    err = gaps.abs().max().item() if gaps.numel() else 0.0
+    if not err <= 1e-3:
+        raise AssertionError(f"{what}: corners or sides {err} px apart")
+    return err
+
+
+def k5_work(keyed: torch.Tensor, w: int) -> tuple[int, int]:
+    """The bytes K5 must move (slot map and prob in, 54 B a slot out) and
+    the operations this input needs: about 12 a foreground pixel for the
+    moments, and 10 a candidate angle at each of the two extreme pixels of
+    every (slot, row) that holds a pixel."""
+    n, hw = keyed.shape
+    key = keyed.long()
+    fg = key < K
+    rows = torch.arange(hw, device=keyed.device) // w
+    pair = (torch.arange(n, device=keyed.device)[:, None] * (K + 1)
+            + key) * (hw // w) + rows
+    points = 2 * torch.unique(pair[fg]).numel()
+    candidates = sum(len(o) for o in cc.stage_offsets())
+    return (n * hw * (4 + 4) + n * K * 54,
+            int(fg.sum()) * 12 + points * candidates * 10)
 
 
 # K3's hard masks, the same as tests/torch_scenes.K3_SWEEP: the kernel works
@@ -447,11 +477,67 @@ def phase_k3_sweep() -> None:
         f"plain version bit for bit")
 
 
-def phase_served_k3(preds: torch.Tensor) -> list[dict]:
-    """K3 rows on the served batch's masks at the handler's threshold 0.3:
-    the 8-connected foreground and the 4-connected background, as the rect
-    and polygon paths label them."""
-    mask = preds[..., 0] > 0.3
+def k5_inputs(prob: torch.Tensor, mask: torch.Tensor):
+    """K5's inputs as the rect path makes them from a mask, by the kernels:
+    K3 -> K4 on the foreground, K3/K4 on the 4-connected background -> K6.
+    Returns (keyed, valid_root, hole_sum, hole_cnt)."""
+    keyed, valid_root = cc.compact_slots(cc.connected_components(mask), K)
+    bg_keyed, _ = cc.compact_slots(cc.connected_components(~mask, 4), K)
+    return (keyed, valid_root) + cc.hole_stats(mask, keyed, bg_keyed, prob, K)
+
+
+def bars_map(h: int, w: int, i: int) -> np.ndarray:
+    """Prob map of 12 rotated bars at 0, 90, +-45 degrees and at small
+    angles near 0, where neighbouring candidate angles tie on area and the
+    first minimum decides; image i shifts their lengths and widths."""
+    p = np.full((h, w), 0.1, np.float32)
+    angles = (0.0, 90.0, 45.0, -45.0, 0.25, -0.25, 0.5, -0.5, 1.0, -1.0,
+              3.0, -3.0)
+    for j, deg in enumerate(angles):
+        cy = (j // 4 + 0.5) * h / 3
+        cx = (j % 4 + 0.5) * w / 4
+        draw_rect(p, cx, cy, min(w // 5, h // 4) + 3 * i, 6 + i, deg,
+                  0.6 + 0.02 * j)
+    return p
+
+
+def phase_k5_sweep() -> None:
+    """K5 against its plain version along the rect path (K3 -> K4 -> K3/K4
+    on the background -> K6 -> K5) on K3's hard masks, with prob drawn from
+    the seed, and on the bar maps, at 8x640x640 and at a ragged 8x637x641:
+    valid slots exact, corners and sides within 1e-3 px, scores within
+    1e-6 (check_k5)."""
+    dev = torch.device("cuda")
+    checked, worst = 0, 0.0
+    for h, w in ((SIZE, SIZE), (637, 641)):
+        for name in K3_SWEEP + ("bars",):
+            if name == "bars":
+                prob = np.stack([bars_map(h, w, i) for i in range(N)])
+                mask = prob > 0.3
+            else:
+                mask = np.stack([k3_sweep_mask(name, h, w, SEED + i)
+                                 for i in range(N)])
+                prob = np.random.RandomState(SEED).rand(N, h, w)
+            prob = torch.from_numpy(prob.astype(np.float32)).to(dev)
+            mask = torch.from_numpy(mask).to(dev)
+            keyed, valid_root, hole_sum, hole_cnt = k5_inputs(prob, mask)
+            args = (prob, keyed, valid_root, hole_sum, hole_cnt, K)
+            worst = max(worst, check_k5(cc.rotated_boxes(*args),
+                                        cc.rotated_boxes_plain(*args),
+                                        f"K5 sweep: {name} at {N}x{h}x{w}"))
+            checked += 1
+    log(f"k5 sweep ok: {checked} cases ({len(K3_SWEEP)} masks and the bar "
+        f"maps at {N}x{SIZE}x{SIZE} and {N}x637x641) against the plain "
+        f"version, corners and sides within {worst:.3g} px")
+
+
+def phase_served(preds: torch.Tensor) -> list[dict]:
+    """K3 and K5 rows on the served batch's maps at the handler's threshold
+    0.3: K3 on the 8-connected foreground and the 4-connected background,
+    as the rect and polygon paths label them, and K5 on the slot maps that
+    the rect path gives it (K = 1000)."""
+    prob = preds[..., 0].contiguous()
+    mask = prob > 0.3
     px = mask.numel()
     rows = []
     for conn, m in ((8, mask), (4, ~mask)):
@@ -462,7 +548,15 @@ def phase_served_k3(preds: torch.Tensor) -> list[dict]:
             err, 0, lambda m=m, conn=conn: cc.connected_components(m, conn),
             lambda m=m, conn=conn: cc.connected_components_plain(m, conn),
             px * (1 + 4), px * conn))
-    log(f"served k3 ok: {int(mask.sum())} of {px} pixels set over {N} maps")
+    args = (prob,) + k5_inputs(prob, mask) + (K,)
+    out_p = cc.rotated_boxes_plain(*args)
+    rows.append(kernel_row(
+        "rotated_boxes_served", "cuda", SRC, f"{JAX_CC}:184",
+        check_k5(cc.rotated_boxes(*args), out_p, "rotated_boxes_served"),
+        1e-3, lambda: cc.rotated_boxes(*args),
+        lambda: cc.rotated_boxes_plain(*args), *k5_work(args[1], SIZE)))
+    log(f"served k3 and k5 ok: {int(mask.sum())} of {px} pixels set over "
+        f"{N} maps, {int(out_p[3].sum())} valid slots")
     return rows
 
 
@@ -1268,12 +1362,13 @@ def main() -> int:
         int8_rows = phase_int8_kernels()
         rows = phase_kernels()
         phase_k3_sweep()
+        phase_k5_sweep()
         poly_rows = phase_poly_kernels()
         phase_drivers()
         db_rows = phase_db_step_kernels()
         with tempfile.TemporaryDirectory() as workdir:
             launches, pth, preds, flax_ms = phase_serve(workdir)
-            rows += phase_served_k3(preds)
+            rows += phase_served(preds)
             quant = phase_quant(pth, flax_ms)
             phase_check_quant(preds, quant)
             p1_launches = quant["launches"]

@@ -19,8 +19,9 @@
 //
 // Every pass reads each input pixel once or a few times and does a handful
 // of integer or float operations on it, so all of them are bound by memory
-// traffic (and, for K5, by atomics into a few hot slot addresses), not by
-// arithmetic. Each design note below says what the kernel does about that.
+// traffic (and by atomics into the few addresses of a large component), not
+// by arithmetic. Each design note below says what the kernel does about
+// that.
 //
 // Each extern "C" entry launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so that the Python wrapper can raise.
@@ -483,45 +484,85 @@ __global__ void k4_assign(const int* __restrict__ labels,
 }
 
 // ---------------------------------------------------------------- K5 ------
-// Per-slot moments and a coarse-to-fine angle search over projected
-// extents. Design: the bound is memory traffic plus atomics into the few
-// addresses of a large component. Each thread walks RUN consecutive pixels
-// and keeps running sums / minima / maxima in registers while the slot stays
-// the same, flushing on a slot change; at the end a warp whose 32 threads
-// all hold the same slot reduces by shuffles and one lane does the atomics.
-// A large component therefore costs about one atomic per 512 pixels per
-// value instead of one per pixel. Float minima and maxima go through an
-// order-preserving int encoding (CUDA has no float atomicMin). Sums that
-// depend on atomic order are taken exactly (int64 coordinate sums) or in
-// f64 (prob and second moments), so the f32 results they are rounded to
-// hardly ever change from run to run. Products and sums that feed the
-// angle choice use __fmul_rn/__fadd_rn so that the compiler does not fuse
-// them: the plain PyTorch version computes the same roundings, and the two
-// pick the same candidate angle.
+// Oriented min-rects of the slots. Replaces component_rotated_boxes with
+// _rect_corners (db_text_minimal_tpu/ops/pallas/cc.py:181-320): per slot the
+// pixel count, prob sum and centre, the PCA angle from the second moments, a
+// coarse-to-fine search for the candidate angle whose rotated extents give
+// the least area (13 candidates over +-45 degrees, then three stages of 5),
+// the rectangle's corners and sides, and the mean prob over the component
+// and the holes K6 routed to it.
+//
+// Bound: 8 B a pixel in (slot and prob) and 54 B a slot out, 0.0080 ms at
+// 8x640x640 and K = 1000 at the H100's 3.35 TB/s; a pixel costs a dozen
+// operations, so bytes bound it.
+//
+// Row extremes are exact. Within one row y of a slot, dx = fl(x - cx) is
+// non-decreasing in x, fl(dx * c) is monotone in dx, and fl(a + b) is
+// non-decreasing in a for a fixed b; so u = fl(fl(dx c) + fl(dy s)) and
+// v = fl(fl(-dx s) + fl(dy c)) are monotone in x within the row, after
+// rounding too. Every extent (umin, umax, vmin, vmax) at every candidate is
+// therefore reached at the slot's leftmost or rightmost pixel of some row,
+// and the extents over those two pixels of each row equal the extents over
+// all of its pixels bit for bit. A slot needs at most 2 H points, whatever
+// its pixel count.
+//
+// The design before this one ran, for each of the four stages, a pass over
+// every pixel that projected it at each candidate and flushed 4 A atomics
+// (52 in the coarse stage) into its slot's few words on every change of
+// slot, from 96 floats of candidate state in registers: six passes over the
+// slot map, 17 launches, 7 fills and a copy of the offsets from pageable
+// host memory per call. Its extent passes took 0.69 of its 0.81 ms on an
+// H100 at 8x640x640. What this design does instead:
+//
+// - k5_moments1, over the pixels: count, f64 prob sum, exact int64
+//   coordinate sums and the slot's first and last row, from runs of RUN
+//   pixels kept in registers and flushed on a change of slot; a warp whose
+//   lanes hold one slot reduces by shuffles before one lane's atomics.
+// - k5_rows, over the slots: the centre, and the row entries [ymin, ymax]
+//   of the slot set to (W, -1), so the table (N, K, H) costs the sum of
+//   the heights in writes, not N K H, and needs no host synchronisation.
+// - k5_moments2, over the pixels: the f64 second moments as before, and
+//   each run's leftmost and rightmost x by atomicMin/atomicMax into its
+//   (slot, row) entry, flushed on a change of slot or row; at the end the
+//   lanes of a warp that hold one (slot, row) reduce first
+//   (__match_any_sync, __reduce_min_sync), so a row of a large component
+//   takes about one atomic pair per warp that crosses it.
+// - k5_search, over the slots: a warp runs all four stages of one slot on
+//   its row extremes, with no pass over the pixels, no atomics and no
+//   per-candidate tables in device memory. Lane (a, g) projects candidate a over rows
+//   g, g + G, ... (G = 32 / A); the G lanes of a candidate combine by
+//   shuffles; a butterfly over (area, a) gives the first minimum, as
+//   jnp.argmin picks it; the finish writes corners, sides, score and valid.
+//   A slot of more than K5_TALL rows (a spiral, a served map's one giant
+//   component) takes its block's eight warps, which combine each stage's
+//   extents through shared memory between two barriers. A slot's row
+//   extremes are read into shared memory once and serve all four stages.
+//   A slot without a pixel (most of the K) skips the search: every area
+//   ties, so the first candidate of each stage wins.
+//
+// Five operations on the caller's stream (a memset of the accumulators and
+// four kernels), no allocation, no host synchronisation; the candidate
+// offsets travel by value in the search's parameters. Sums taken in atomic
+// order are exact (int64) or f64, and the products and sums that choose the
+// angle use __fmul_rn/__fadd_rn so that the compiler fuses none of them:
+// the plain PyTorch version computes the same roundings and picks the same
+// angles.
 
 constexpr int RUN = 16;
-constexpr int MAXA = 16;
 constexpr float BIG = 1e9f;
-
-__device__ __forceinline__ int f2o(float f) {
-  const int i = __float_as_int(f);
-  return i >= 0 ? i : i ^ 0x7fffffff;
-}
-__device__ __forceinline__ float o2f(int i) {
-  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
-}
+constexpr int K5_MAX_STAGES = 8, K5_MAX_OFFSETS = 64;
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
+__device__ __forceinline__ int warp_min_i(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+__device__ __forceinline__ int warp_max_i(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
@@ -531,270 +572,368 @@ __device__ __forceinline__ bool warp_uniform(int cur) {
   return __all_sync(FULL, cur == lead) && lead >= 0;
 }
 
+// The candidate offsets of every stage, back to back.
+struct K5Stages {
+  int n;
+  int size[K5_MAX_STAGES];
+  float off[K5_MAX_OFFSETS];
+};
+
+// Per-slot scratch, (N, K) each but the row table (N, K, H). The sums,
+// counts and row bounds are zeroed by the memset; the bounds are kept as
+// ylo = max(H - y) and yhi = max(y + 1), so 0 means no pixel.
+struct K5Slots {
+  int2* rows;                    // per row: leftmost and rightmost x
+  double *psum, *sxx, *syy, *sxy;
+  unsigned long long *sx, *sy;
+  int *cnt, *ylo, *yhi;
+  float *cx, *cy;
+};
+
+__host__ __device__ inline size_t k5_zeroed_bytes(size_t NK) {
+  return NK * (6 * 8 + 3 * 4);
+}
+
+inline K5Slots k5_slots(void* scratch, int N, int H, int K) {
+  const size_t NK = (size_t)N * K;
+  K5Slots t;
+  t.rows = static_cast<int2*>(scratch);
+  double* d = reinterpret_cast<double*>(t.rows + NK * H);
+  t.psum = d;
+  t.sxx = d + NK;
+  t.syy = d + 2 * NK;
+  t.sxy = d + 3 * NK;
+  t.sx = reinterpret_cast<unsigned long long*>(d + 4 * NK);
+  t.sy = reinterpret_cast<unsigned long long*>(d + 5 * NK);
+  int* i = reinterpret_cast<int*>(d + 6 * NK);
+  t.cnt = i;
+  t.ylo = i + NK;
+  t.yhi = i + 2 * NK;
+  t.cx = reinterpret_cast<float*>(i + 3 * NK);
+  t.cy = t.cx + NK;
+  return t;
+}
+
+__device__ __forceinline__ void flush_moments1(const K5Slots& t, size_t at,
+                                               int H, int c, double ps,
+                                               unsigned long long ax,
+                                               unsigned long long ay, int y0,
+                                               int y1) {
+  atomicAdd(&t.cnt[at], c);
+  atomicAdd(&t.psum[at], ps);
+  atomicAdd(&t.sx[at], ax);
+  atomicAdd(&t.sy[at], ay);
+  atomicMax(&t.ylo[at], H - y0);
+  atomicMax(&t.yhi[at], y1 + 1);
+}
+
 __global__ void k5_moments1(const int* __restrict__ keyed,
-                            const float* __restrict__ prob, int HW, int W,
-                            int K, int* cnt, double* psum,
-                            unsigned long long* sx, unsigned long long* sy) {
+                            const float* __restrict__ prob, int H, int W,
+                            int K, const __grid_constant__ K5Slots t) {
+  const int HW = H * W;
   const size_t base = (size_t)blockIdx.y * HW;
   const size_t sbase = (size_t)blockIdx.y * K;
   const int p0 = (blockIdx.x * blockDim.x + threadIdx.x) * RUN;
-  int cur = -1, c = 0;
+  int cur = -1, c = 0, y0 = 0, y1 = 0;
   double ps = 0.0;
   unsigned long long ax = 0, ay = 0;
-  for (int j = 0; j < RUN; ++j) {
+  int x = p0 % W, y = p0 / W;
+  for (int j = 0; j < RUN; ++j, ++x) {
+    if (x == W) {
+      x = 0;
+      ++y;
+    }
     const int p = p0 + j;
     if (p >= HW) break;
     const int s = keyed[base + p];
-    if (s >= K) continue;
+    if ((unsigned)s >= (unsigned)K) continue;
     if (s != cur) {
-      if (cur >= 0) {
-        atomicAdd(&cnt[sbase + cur], c);
-        atomicAdd(&psum[sbase + cur], ps);
-        atomicAdd(&sx[sbase + cur], ax);
-        atomicAdd(&sy[sbase + cur], ay);
-      }
-      cur = s; c = 0; ps = 0.0; ax = 0; ay = 0;
+      if (cur >= 0) flush_moments1(t, sbase + cur, H, c, ps, ax, ay, y0, y1);
+      cur = s; c = 0; ps = 0.0; ax = 0; ay = 0; y0 = y;
     }
     c += 1;
     ps += (double)prob[base + p];
-    ax += (unsigned long long)(p % W);
-    ay += (unsigned long long)(p / W);
+    ax += (unsigned long long)x;
+    ay += (unsigned long long)y;
+    y1 = y;
   }
+  // every lane reaches the collectives, those past the image too
   if (warp_uniform(cur)) {
     c = warp_sum(c); ps = warp_sum(ps); ax = warp_sum(ax); ay = warp_sum(ay);
+    y0 = warp_min_i(y0); y1 = warp_max_i(y1);
     if ((threadIdx.x & 31) != 0) cur = -1;
   }
-  if (cur >= 0) {
-    atomicAdd(&cnt[sbase + cur], c);
-    atomicAdd(&psum[sbase + cur], ps);
-    atomicAdd(&sx[sbase + cur], ax);
-    atomicAdd(&sy[sbase + cur], ay);
+  if (cur >= 0) flush_moments1(t, sbase + cur, H, c, ps, ax, ay, y0, y1);
+}
+
+// A warp per slot: its centre (as the plain version rounds it), and its
+// row entries [ymin, ymax] set to (W, -1), an empty row.
+__global__ void k5_rows(int H, int W, int NK,
+                        const __grid_constant__ K5Slots t) {
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= NK) return;   // no warp collective in this kernel
+  const int n = t.cnt[i];
+  if (lane == 0) {
+    const double d = (double)max(n, 1);
+    t.cx[i] = (float)((double)t.sx[i] / d);
+    t.cy[i] = (float)((double)t.sy[i] / d);
   }
+  if (n == 0) return;
+  int2* r = t.rows + (size_t)i * H;
+  const int end = t.yhi[i];
+  for (int y = H - t.ylo[i] + lane; y < end; y += 32) r[y] = make_int2(W, -1);
 }
 
-__global__ void k5_center(const int* __restrict__ cnt,
-                          const unsigned long long* __restrict__ sx,
-                          const unsigned long long* __restrict__ sy, int K,
-                          int NK, float* cx, float* cy) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= NK) return;
-  const double n = (double)max(cnt[i], 1);
-  cx[i] = (float)((double)sx[i] / n);
-  cy[i] = (float)((double)sy[i] / n);
+__device__ __forceinline__ void flush_row(const K5Slots& t, size_t at, int H,
+                                          int y, int x0, int x1) {
+  int* e = reinterpret_cast<int*>(t.rows + at * H + y);
+  atomicMin(&e[0], x0);
+  atomicMax(&e[1], x1);
 }
 
-__global__ void k5_moments2(const int* __restrict__ keyed, int HW, int W,
-                            int K, const float* __restrict__ cx,
-                            const float* __restrict__ cy, double* sxx,
-                            double* syy, double* sxy) {
+__device__ __forceinline__ void flush_moments2(const K5Slots& t, size_t at,
+                                               double axx, double ayy,
+                                               double axy) {
+  atomicAdd(&t.sxx[at], axx);
+  atomicAdd(&t.syy[at], ayy);
+  atomicAdd(&t.sxy[at], axy);
+}
+
+__global__ void k5_moments2(const int* __restrict__ keyed, int H, int W,
+                            int K, const __grid_constant__ K5Slots t) {
+  const int HW = H * W;
   const size_t base = (size_t)blockIdx.y * HW;
   const size_t sbase = (size_t)blockIdx.y * K;
   const int p0 = (blockIdx.x * blockDim.x + threadIdx.x) * RUN;
-  int cur = -1;
+  int cur = -1, row = 0, x0 = 0, x1 = 0;
   float mx = 0.f, my = 0.f;
   double axx = 0.0, ayy = 0.0, axy = 0.0;
-  for (int j = 0; j < RUN; ++j) {
+  int x = p0 % W, y = p0 / W;
+  for (int j = 0; j < RUN; ++j, ++x) {
+    if (x == W) {
+      x = 0;
+      ++y;
+    }
     const int p = p0 + j;
     if (p >= HW) break;
     const int s = keyed[base + p];
-    if (s >= K) continue;
-    if (s != cur) {
-      if (cur >= 0) {
-        atomicAdd(&sxx[sbase + cur], axx);
-        atomicAdd(&syy[sbase + cur], ayy);
-        atomicAdd(&sxy[sbase + cur], axy);
+    if ((unsigned)s >= (unsigned)K) continue;
+    if (s != cur || y != row) {
+      if (cur >= 0) flush_row(t, sbase + cur, H, row, x0, x1);
+      if (s != cur) {
+        if (cur >= 0) flush_moments2(t, sbase + cur, axx, ayy, axy);
+        cur = s; axx = 0.0; ayy = 0.0; axy = 0.0;
+        mx = t.cx[sbase + s]; my = t.cy[sbase + s];
       }
-      cur = s; axx = 0.0; ayy = 0.0; axy = 0.0;
-      mx = cx[sbase + s]; my = cy[sbase + s];
+      row = y;
+      x0 = x;
     }
-    const float dx = __fsub_rn((float)(p % W), mx);
-    const float dy = __fsub_rn((float)(p / W), my);
+    x1 = x;
+    const float dx = __fsub_rn((float)x, mx);
+    const float dy = __fsub_rn((float)y, my);
     axx += (double)__fmul_rn(dx, dx);
     ayy += (double)__fmul_rn(dy, dy);
     axy += (double)__fmul_rn(dx, dy);
   }
+  // every lane reaches the collectives, those past the image too: the
+  // lanes that end in one (slot, row) take its extremes together
+  const unsigned same = __match_any_sync(FULL, cur >= 0 ? cur * H + row : -1);
+  x0 = __reduce_min_sync(same, x0);
+  x1 = __reduce_max_sync(same, x1);
+  if (cur >= 0 && (threadIdx.x & 31) == __ffs(same) - 1)
+    flush_row(t, sbase + cur, H, row, x0, x1);
   if (warp_uniform(cur)) {
     axx = warp_sum(axx); ayy = warp_sum(ayy); axy = warp_sum(axy);
     if ((threadIdx.x & 31) != 0) cur = -1;
   }
-  if (cur >= 0) {
-    atomicAdd(&sxx[sbase + cur], axx);
-    atomicAdd(&syy[sbase + cur], ayy);
-    atomicAdd(&sxy[sbase + cur], axy);
-  }
+  if (cur >= 0) flush_moments2(t, sbase + cur, axx, ayy, axy);
 }
 
-__global__ void k5_theta(const double* __restrict__ sxx,
-                         const double* __restrict__ syy,
-                         const double* __restrict__ sxy, int NK,
-                         float* theta) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= NK) return;
-  const float xx = (float)sxx[i], yy = (float)syy[i], xy = (float)sxy[i];
-  theta[i] = 0.5f * atan2f(2.0f * xy, __fsub_rn(xx, yy));
+constexpr int K5_WARPS = 8;   // slots a block of k5_search
+// A slot of more rows than this takes the whole block, not one warp.
+constexpr int K5_TALL = 64;
+// Rows of a tall slot's span that the block stages in shared memory.
+constexpr int K5_STAGED = 1024;
+static_assert(K5_WARPS * K5_TALL <= K5_STAGED, "a warp's rows must fit");
+
+__device__ __forceinline__ int k5_height(const K5Slots& t, size_t i, int H) {
+  return t.cnt[i] > 0 ? t.yhi[i] - (H - t.ylo[i]) : 0;
 }
 
-// Candidate angles theta + off[a] of one stage: their cos/sin table and the
-// reset extent accumulators (umin, umax, vmin, vmax as ordered ints).
-__global__ void k5_prepare(const float* __restrict__ theta,
-                           const float* __restrict__ off, int A, int NK,
-                           float* cs, int* ext) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= NK) return;
-  const float t = theta[i];
-  for (int a = 0; a < A; ++a) {
-    const float ang = __fadd_rn(t, off[a]);
-    cs[((size_t)i * A + a) * 2] = cosf(ang);
-    cs[((size_t)i * A + a) * 2 + 1] = sinf(ang);
-    int* e = ext + ((size_t)i * A + a) * 4;
-    e[0] = f2o(BIG);
-    e[1] = f2o(-BIG);
-    e[2] = f2o(BIG);
-    e[3] = f2o(-BIG);
-  }
-}
-
-__device__ __forceinline__ void flush_ext(int* e, int A, const float* umin,
-                                          const float* umax,
-                                          const float* vmin,
-                                          const float* vmax) {
-#pragma unroll
-  for (int a = 0; a < MAXA; ++a) {
-    if (a < A) {
-      atomicMin(&e[a * 4 + 0], f2o(umin[a]));
-      atomicMax(&e[a * 4 + 1], f2o(umax[a]));
-      atomicMin(&e[a * 4 + 2], f2o(vmin[a]));
-      atomicMax(&e[a * 4 + 3], f2o(vmax[a]));
+// The four stages and the finish of slot i, by one warp (BLOCK false) or
+// by the block's K5_WARPS warps together (BLOCK true: every thread of the
+// block calls it, and part holds each warp's extents between barriers).
+// The slot's row extremes are read once into shared memory (cache: the
+// warp's K5_TALL entries, or the block's K5_STAGED), and the four stages
+// read them from there.
+template <bool BLOCK>
+__device__ __forceinline__ void k5_slot(
+    size_t i, int H, const K5Stages& st, const K5Slots& t,
+    const uint8_t* __restrict__ valid_root,
+    const float* __restrict__ hole_sum, const float* __restrict__ hole_cnt,
+    float* __restrict__ corners, float* __restrict__ sides,
+    float* __restrict__ scores, uint8_t* __restrict__ valid,
+    float (*part)[32][4], int2* cache) {
+  const int lane = threadIdx.x & 31;
+  const int warp = BLOCK ? threadIdx.x >> 5 : 0;
+  const int warps = BLOCK ? K5_WARPS : 1;
+  const int n = t.cnt[i];
+  const float mx = t.cx[i], my = t.cy[i];
+  const float xx = (float)t.sxx[i], yy = (float)t.syy[i];
+  const float xy = (float)t.sxy[i];
+  float theta = 0.5f * atan2f(2.0f * xy, __fsub_rn(xx, yy));
+  const int y0 = n > 0 ? H - t.ylo[i] : 0;
+  const int y1 = n > 0 ? t.yhi[i] - 1 : -1;
+  const int2* rows = t.rows + i * H;
+  const int span = min(y1 - y0 + 1, BLOCK ? K5_STAGED : K5_TALL);
+  for (int q = BLOCK ? threadIdx.x : lane; q < span;
+       q += BLOCK ? K5_WARPS * 32 : 32)
+    cache[q] = rows[y0 + q];
+  if (BLOCK)
+    __syncthreads();
+  else
+    __syncwarp();
+  float umin = BIG, umax = -BIG, vmin = BIG, vmax = -BIG;
+  for (int stage = 0, first = 0; stage < st.n; first += st.size[stage++]) {
+    if (n == 0) {   // no pixel: every area ties, so the first candidate wins
+      theta = __fadd_rn(theta, st.off[first]);
+      continue;
     }
-  }
-}
-
-__global__ void k5_extent(const int* __restrict__ keyed, int HW, int W, int K,
-                          int A, const float* __restrict__ cx,
-                          const float* __restrict__ cy,
-                          const float* __restrict__ cs, int* ext) {
-  const size_t base = (size_t)blockIdx.y * HW;
-  const size_t sbase = (size_t)blockIdx.y * K;
-  const int p0 = (blockIdx.x * blockDim.x + threadIdx.x) * RUN;
-  float umin[MAXA], umax[MAXA], vmin[MAXA], vmax[MAXA], c[MAXA], s[MAXA];
-  int cur = -1;
-  float mx = 0.f, my = 0.f;
-  for (int j = 0; j < RUN; ++j) {
-    const int p = p0 + j;
-    if (p >= HW) break;
-    const int sl = keyed[base + p];
-    if (sl >= K) continue;
-    if (sl != cur) {
-      if (cur >= 0)
-        flush_ext(ext + (sbase + cur) * A * 4, A, umin, umax, vmin, vmax);
-      cur = sl;
-      mx = cx[sbase + sl];
-      my = cy[sbase + sl];
-      const float* t = cs + (sbase + sl) * A * 2;
-#pragma unroll
-      for (int a = 0; a < MAXA; ++a) {
-        if (a < A) {
-          c[a] = t[2 * a];
-          s[a] = t[2 * a + 1];
-          umin[a] = BIG; umax[a] = -BIG; vmin[a] = BIG; vmax[a] = -BIG;
+    const int A = st.size[stage], G = 32 / A;
+    const int a = lane % A, g = lane / A;
+    const float off = st.off[first + a];
+    const float ang = __fadd_rn(theta, off);
+    const float c = cosf(ang), s = sinf(ang);
+    float u0 = BIG, u1 = -BIG, v0 = BIG, v1 = -BIG;
+    // rows y0 + q, y0 + q + Q, ... for part q = warp G + g of Q = warps G
+#pragma unroll 4
+    for (int y = y0 + warp * G + g; g < G && y <= y1; y += warps * G) {
+      const int2 r = y - y0 < span ? cache[y - y0] : rows[y];
+      if (r.x > r.y) continue;   // a row of the slot's span without a pixel
+      const float dy = __fsub_rn((float)y, my);
+      const float dys = __fmul_rn(dy, s), dyc = __fmul_rn(dy, c);
+      const float dl = __fsub_rn((float)r.x, mx);
+      const float dr = __fsub_rn((float)r.y, mx);
+      const float ul = __fadd_rn(__fmul_rn(dl, c), dys);
+      const float ur = __fadd_rn(__fmul_rn(dr, c), dys);
+      const float vl = __fadd_rn(__fmul_rn(-dl, s), dyc);
+      const float vr = __fadd_rn(__fmul_rn(-dr, s), dyc);
+      u0 = fminf(u0, fminf(ul, ur));
+      u1 = fmaxf(u1, fmaxf(ul, ur));
+      v0 = fminf(v0, fminf(vl, vr));
+      v1 = fmaxf(v1, fmaxf(vl, vr));
+    }
+    // lane a < A takes in the partial extents of lanes a + A j, j < G
+    const float p0 = u0, p1 = u1, p2 = v0, p3 = v1;
+    for (int j = 1; j < G; ++j) {
+      const int src = (lane + A * j) & 31;
+      u0 = fminf(u0, __shfl_sync(FULL, p0, src));
+      u1 = fmaxf(u1, __shfl_sync(FULL, p1, src));
+      v0 = fminf(v0, __shfl_sync(FULL, p2, src));
+      v1 = fmaxf(v1, __shfl_sync(FULL, p3, src));
+    }
+    if (BLOCK) {   // and the same lane of the other warps
+      if (lane < A) {
+        part[warp][lane][0] = u0;
+        part[warp][lane][1] = u1;
+        part[warp][lane][2] = v0;
+        part[warp][lane][3] = v1;
+      }
+      __syncthreads();
+      if (lane < A) {
+        for (int w = 0; w < K5_WARPS; ++w) {
+          u0 = fminf(u0, part[w][lane][0]);
+          u1 = fmaxf(u1, part[w][lane][1]);
+          v0 = fminf(v0, part[w][lane][2]);
+          v1 = fmaxf(v1, part[w][lane][3]);
         }
       }
+      __syncthreads();
     }
-    const float dx = __fsub_rn((float)(p % W), mx);
-    const float dy = __fsub_rn((float)(p / W), my);
-#pragma unroll
-    for (int a = 0; a < MAXA; ++a) {
-      if (a < A) {
-        const float u = __fadd_rn(__fmul_rn(dx, c[a]), __fmul_rn(dy, s[a]));
-        const float v = __fadd_rn(__fmul_rn(-dx, s[a]), __fmul_rn(dy, c[a]));
-        umin[a] = fminf(umin[a], u);
-        umax[a] = fmaxf(umax[a], u);
-        vmin[a] = fminf(vmin[a], v);
-        vmax[a] = fmaxf(vmax[a], v);
+    // the first candidate of least area, on every lane
+    float area = __int_as_float(0x7f800000);
+    int best = 32;
+    if (lane < A) {
+      area = __fmul_rn(__fsub_rn(u1, u0), __fsub_rn(v1, v0));
+      best = lane;
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const float oa = __shfl_xor_sync(FULL, area, o);
+      const int ob = __shfl_xor_sync(FULL, best, o);
+      if (oa < area || (oa == area && ob < best)) {
+        area = oa;
+        best = ob;
       }
     }
+    theta = __fadd_rn(theta, __shfl_sync(FULL, off, best));
+    umin = __shfl_sync(FULL, u0, best);
+    umax = __shfl_sync(FULL, u1, best);
+    vmin = __shfl_sync(FULL, v0, best);
+    vmax = __shfl_sync(FULL, v1, best);
   }
-  if (warp_uniform(cur)) {
-#pragma unroll
-    for (int a = 0; a < MAXA; ++a) {
-      if (a < A) {
-        umin[a] = warp_min(umin[a]);
-        umax[a] = warp_max(umax[a]);
-        vmin[a] = warp_min(vmin[a]);
-        vmax[a] = warp_max(vmax[a]);
-      }
-    }
-    if ((threadIdx.x & 31) != 0) cur = -1;
-  }
-  if (cur >= 0)
-    flush_ext(ext + (sbase + cur) * A * 4, A, umin, umax, vmin, vmax);
-}
-
-// Tightest candidate (first minimum, as jnp.argmin) becomes the new angle.
-__global__ void k5_pick(const int* __restrict__ ext,
-                        const float* __restrict__ off, int A, int NK,
-                        float* theta, float* best_ext) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= NK) return;
-  int best = 0;
-  float best_area = 0.f;
-  for (int a = 0; a < A; ++a) {
-    const int* e = ext + ((size_t)i * A + a) * 4;
-    const float area = __fmul_rn(__fsub_rn(o2f(e[1]), o2f(e[0])),
-                                 __fsub_rn(o2f(e[3]), o2f(e[2])));
-    if (a == 0 || area < best_area) {
-      best_area = area;
-      best = a;
-    }
-  }
-  theta[i] = __fadd_rn(theta[i], off[best]);
-  const int* e = ext + ((size_t)i * A + best) * 4;
-  for (int j = 0; j < 4; ++j) best_ext[(size_t)i * 4 + j] = o2f(e[j]);
-}
-
-__global__ void k5_finish(const float* __restrict__ theta,
-                          const float* __restrict__ best_ext,
-                          const float* __restrict__ cx,
-                          const float* __restrict__ cy,
-                          const int* __restrict__ cnt,
-                          const double* __restrict__ psum,
-                          const uint8_t* __restrict__ valid_root,
-                          const float* __restrict__ hole_sum,
-                          const float* __restrict__ hole_cnt, int NK,
-                          float* corners, float* sides, float* scores,
-                          uint8_t* valid) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= NK) return;
-  const float ang = theta[i];
-  const float c = cosf(ang), s = sinf(ang);
-  const float umin = best_ext[i * 4], umax = best_ext[i * 4 + 1];
-  const float vmin = best_ext[i * 4 + 2], vmax = best_ext[i * 4 + 3];
+  if (lane != 0 || warp != 0) return;
+  const float c = cosf(theta), s = sinf(theta);
   const float uc = __fadd_rn(umin, umax) / 2.0f;
   const float vc = __fadd_rn(vmin, vmax) / 2.0f;
-  const float ctr_x = __fsub_rn(__fadd_rn(cx[i], __fmul_rn(uc, c)),
+  const float ctr_x = __fsub_rn(__fadd_rn(mx, __fmul_rn(uc, c)),
                                 __fmul_rn(vc, s));
-  const float ctr_y = __fadd_rn(__fadd_rn(cy[i], __fmul_rn(uc, s)),
+  const float ctr_y = __fadd_rn(__fadd_rn(my, __fmul_rn(uc, s)),
                                 __fmul_rn(vc, c));
   const float w = __fsub_rn(umax, umin), h = __fsub_rn(vmax, vmin);
   const float hw = w / 2.0f, hh = h / 2.0f;
   const float us[4] = {-hw, hw, hw, -hw};
   const float vs[4] = {-hh, -hh, hh, hh};
-  for (int k = 0; k < 4; ++k) {
-    corners[(size_t)i * 8 + 2 * k] =
-        __fsub_rn(__fadd_rn(ctr_x, __fmul_rn(us[k], c)), __fmul_rn(vs[k], s));
-    corners[(size_t)i * 8 + 2 * k + 1] =
-        __fadd_rn(__fadd_rn(ctr_y, __fmul_rn(us[k], s)), __fmul_rn(vs[k], c));
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    corners[i * 8 + 2 * q] =
+        __fsub_rn(__fadd_rn(ctr_x, __fmul_rn(us[q], c)), __fmul_rn(vs[q], s));
+    corners[i * 8 + 2 * q + 1] =
+        __fadd_rn(__fadd_rn(ctr_y, __fmul_rn(us[q], s)), __fmul_rn(vs[q], c));
   }
-  sides[(size_t)i * 2] = w;
-  sides[(size_t)i * 2 + 1] = h;
+  sides[i * 2] = w;
+  sides[i * 2 + 1] = h;
   // score over the component and the holes it encloses (K6)
-  const float n = (float)cnt[i];
-  const bool ok = valid_root[i] && n > 0.f;
+  const float nf = (float)n;
+  const bool ok = valid_root[i] && nf > 0.f;
   valid[i] = ok;
-  const float denom = __fadd_rn(n, hole_cnt[i]);
+  const float denom = __fadd_rn(nf, hole_cnt[i]);
   scores[i] = ok && denom > 0.f
-                  ? __fadd_rn((float)psum[i], hole_sum[i]) / fmaxf(denom, 1.0f)
+                  ? __fadd_rn((float)t.psum[i], hole_sum[i]) /
+                        fmaxf(denom, 1.0f)
                   : 0.f;
+}
+
+// A block takes K5_WARPS slots: a warp each for those of at most K5_TALL
+// rows, then, after a barrier, the whole block for each taller one in turn
+// (each warp marks its slot tall or not in shared memory first, so that
+// the block reads its slots' heights from device memory once).
+__global__ void __launch_bounds__(K5_WARPS * 32)
+k5_search(const uint8_t* __restrict__ valid_root,
+          const float* __restrict__ hole_sum,
+          const float* __restrict__ hole_cnt, int H, int K,
+          const __grid_constant__ K5Stages st,
+          const __grid_constant__ K5Slots t, float* __restrict__ corners,
+          float* __restrict__ sides, float* __restrict__ scores,
+          uint8_t* __restrict__ valid) {
+  __shared__ float part[K5_WARPS][32][4];
+  __shared__ int2 cache[K5_STAGED];
+  __shared__ bool tall[K5_WARPS];
+  const int slots = min(K5_WARPS, K - (int)blockIdx.x * K5_WARPS);
+  const size_t first = (size_t)blockIdx.y * K + blockIdx.x * K5_WARPS;
+  const int warp = threadIdx.x >> 5;
+  const bool own_tall =
+      warp < slots && k5_height(t, first + warp, H) > K5_TALL;
+  if ((threadIdx.x & 31) == 0) tall[warp] = own_tall;
+  if (warp < slots && !own_tall)
+    k5_slot<false>(first + warp, H, st, t, valid_root, hole_sum, hole_cnt,
+                   corners, sides, scores, valid, nullptr,
+                   cache + warp * K5_TALL);
+  __syncthreads();
+  for (int w = 0; w < slots; ++w)   // the same branch on every thread
+    if (tall[w])
+      k5_slot<true>(first + w, H, st, t, valid_root, hole_sum, hole_cnt,
+                    corners, sides, scores, valid, part, cache);
 }
 
 // ---------------------------------------------------------------- K6 ------
@@ -892,15 +1031,6 @@ __global__ void k6_accumulate(const uint8_t* __restrict__ mask,
 // minima and maxima are plain integer atomics, and the sum is f64 as in K5
 // and K6. k7_pack writes one byte from eight mask bytes per thread, bound by
 // reading the mask; a row is padded with zero bits to a whole byte.
-
-__device__ __forceinline__ int warp_min_i(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-__device__ __forceinline__ int warp_max_i(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
 
 // Empty slots keep the TPU version's fill: count 0, sum 0, bbox [W, H, -1, -1].
 __global__ void k7_init(int NK, int W, int H, int* cnt, double* psum,
@@ -1034,43 +1164,55 @@ int cc_hole_route(const uint8_t* mask, const int* fg_keyed,
   return (int)cudaGetLastError();
 }
 
-// K5. offsets holds every stage's candidate offsets back to back
-// (stage_sizes[s] of them for stage s). Scratch, zeroed by the caller: cnt
-// (N,K) int32, psum/sxx/syy/sxy (N,K) f64, sx/sy (N,K) int64. Scratch, no
-// init: cx, cy, theta (N,K) f32, cs (N,K,maxA,2) f32, ext (N,K,maxA,4)
-// int32, best_ext (N,K,4) f32. hole_sum/hole_cnt (N,K) f32 from K6.
+// K5: corners (N,K,4,2), sides (N,K,2), scores (N,K) f32 and valid (N,K)
+// 0/1 bytes (a bool tensor's storage) from prob (N,H,W) f32, keyed (N,HW) int32, valid_root (N,K) uint8
+// and hole_sum/hole_cnt (N,K) f32 (K6). offsets holds every stage's
+// candidate offsets back to back, stage_sizes[s] of them for stage s, in
+// host memory: they go to the card in the search's launch parameters.
+// scratch: cc_rot_boxes_scratch_bytes(N, H, K) bytes, no init by the caller.
+size_t cc_rot_boxes_scratch_bytes(int N, int H, int K) {
+  const size_t NK = (size_t)N * K;
+  return NK * H * sizeof(int2) + k5_zeroed_bytes(NK) + NK * 2 * sizeof(float);
+}
+
 int cc_rot_boxes(const float* prob, const int* keyed,
                  const uint8_t* valid_root, const float* hole_sum,
                  const float* hole_cnt, const float* offsets,
-                 const int* stage_sizes, int n_stages, int* cnt, double* psum,
-                 unsigned long long* sx, unsigned long long* sy, double* sxx,
-                 double* syy, double* sxy, float* cx, float* cy, float* theta,
-                 float* cs, int* ext, float* best_ext, float* corners,
-                 float* sides, float* scores, uint8_t* valid, int N, int H,
-                 int W, int K, cudaStream_t stream) {
-  for (int s = 0; s < n_stages; ++s)
-    if (stage_sizes[s] < 1 || stage_sizes[s] > MAXA)
+                 const int* stage_sizes, int n_stages, void* scratch,
+                 float* corners, float* sides, float* scores, uint8_t* valid,
+                 int N, int H, int W, int K, cudaStream_t stream) {
+  K5Stages st = {};
+  if (n_stages < 0 || n_stages > K5_MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  st.n = n_stages;
+  for (int s = 0, first = 0; s < n_stages; first += stage_sizes[s++]) {
+    if (stage_sizes[s] < 1 || stage_sizes[s] > 32 ||
+        first + stage_sizes[s] > K5_MAX_OFFSETS)
       return (int)cudaErrorInvalidValue;
-  const int HW = H * W, NK = N * K;
-  const dim3 pgrid(cdiv(HW, 256 * RUN), N);
-  const int sblocks = cdiv(NK, 256);
-  k5_moments1<<<pgrid, 256, 0, stream>>>(keyed, prob, HW, W, K, cnt, psum, sx,
-                                         sy);
-  k5_center<<<sblocks, 256, 0, stream>>>(cnt, sx, sy, K, NK, cx, cy);
-  k5_moments2<<<pgrid, 256, 0, stream>>>(keyed, HW, W, K, cx, cy, sxx, syy,
-                                         sxy);
-  k5_theta<<<sblocks, 256, 0, stream>>>(sxx, syy, sxy, NK, theta);
-  const float* off = offsets;
-  for (int s = 0; s < n_stages; ++s) {
-    const int A = stage_sizes[s];
-    k5_prepare<<<sblocks, 256, 0, stream>>>(theta, off, A, NK, cs, ext);
-    k5_extent<<<pgrid, 256, 0, stream>>>(keyed, HW, W, K, A, cx, cy, cs, ext);
-    k5_pick<<<sblocks, 256, 0, stream>>>(ext, off, A, NK, theta, best_ext);
-    off += A;
+    st.size[s] = stage_sizes[s];
+    for (int a = 0; a < stage_sizes[s]; ++a)
+      st.off[first + a] = offsets[first + a];
   }
-  k5_finish<<<sblocks, 256, 0, stream>>>(theta, best_ext, cx, cy, cnt, psum,
-                                         valid_root, hole_sum, hole_cnt, NK,
-                                         corners, sides, scores, valid);
+  if (N == 0 || K == 0) return 0;
+  const int HW = H * W, NK = N * K;
+  const K5Slots t = k5_slots(scratch, N, H, K);
+  cudaError_t err = cudaMemsetAsync(t.psum, 0, k5_zeroed_bytes(NK), stream);
+  if (err != cudaSuccess) return (int)err;
+  if (HW > 0) {
+    const dim3 pgrid(cdiv(HW, 256 * RUN), N);
+    k5_moments1<<<pgrid, 256, 0, stream>>>(keyed, prob, H, W, K, t);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    k5_rows<<<cdiv((long)NK * 32, 256), 256, 0, stream>>>(H, W, NK, t);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    k5_moments2<<<pgrid, 256, 0, stream>>>(keyed, H, W, K, t);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  k5_search<<<dim3(cdiv(K, K5_WARPS), N), K5_WARPS * 32, 0, stream>>>(
+      valid_root, hole_sum, hole_cnt, H, K, st, t, corners, sides, scores,
+      valid);
   return (int)cudaGetLastError();
 }
 

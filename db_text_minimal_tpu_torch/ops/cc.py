@@ -36,6 +36,7 @@ and moment sums, where the JAX version sums in f32 by scatter.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import threading
 
@@ -72,8 +73,9 @@ def load_library() -> ctypes.CDLL:
             lib.cc_compact.argtypes = [p, p, p, p, p, i, i, i, p]
             lib.cc_hole_route.argtypes = [p, p, p, p, p, p, p, p,
                                           i, i, i, i, p]
-            lib.cc_rot_boxes.argtypes = ([p] * 6 + [p, i] + [p] * 17
-                                         + [i, i, i, i, p])
+            lib.cc_rot_boxes.argtypes = [p] * 7 + [i] + [p] * 5 + [i] * 4 + [p]
+            lib.cc_rot_boxes_scratch_bytes.argtypes = [i, i, i]
+            lib.cc_rot_boxes_scratch_bytes.restype = ctypes.c_size_t
             lib.cc_bbox_stats.argtypes = [p, p, p, p, p, i, i, i, i, p]
             lib.cc_pack_bits.argtypes = [p, p, i, i, i, p]
             for fn in (lib.cc_label, lib.cc_compact, lib.cc_hole_route,
@@ -384,6 +386,17 @@ def rotated_boxes_plain(prob, keyed, valid_root, hole_sum, hole_cnt,
     return corners, sides, scores, valid
 
 
+@functools.cache
+def _stage_arrays():
+    """``stage_offsets()`` as C arrays in host memory, made once: the
+    offsets back to back and each stage's count. The kernel takes them by
+    value in its launch's parameters, so no call copies them to the card."""
+    stages = stage_offsets()
+    flat = np.concatenate(stages).tolist()
+    return ((ctypes.c_float * len(flat))(*flat),
+            (ctypes.c_int * len(stages))(*(len(o) for o in stages)))
+
+
 def rotated_boxes(prob: torch.Tensor, keyed: torch.Tensor,
                   valid_root: torch.Tensor, hole_sum: torch.Tensor,
                   hole_cnt: torch.Tensor, max_components: int):
@@ -402,43 +415,30 @@ def rotated_boxes(prob: torch.Tensor, keyed: torch.Tensor,
     if not on_cuda(prob, keyed, valid_root, hole_sum, hole_cnt):
         return rotated_boxes_plain(prob, keyed, valid_root, hole_sum,
                                    hole_cnt, k)
-    stages = stage_offsets()
-    sizes = [len(o) for o in stages]
     dev = prob.device
     prob, keyed = prob.contiguous(), keyed.contiguous()
     valid_root = valid_root.contiguous().view(torch.uint8)
-    offsets = torch.from_numpy(np.concatenate(stages)).to(dev)
-    f32, f64, i32 = torch.float32, torch.float64, torch.int32
-    max_a = max(sizes)
-
-    def zeros(dtype, *shape):
-        return torch.zeros((n, k) + shape, dtype=dtype, device=dev)
-
-    def empty(dtype, *shape):
-        return torch.empty((n, k) + shape, dtype=dtype, device=dev)
-
-    cnt = zeros(i32)
-    psum, sxx, syy, sxy = (zeros(f64) for _ in range(4))
-    sx, sy = zeros(torch.int64), zeros(torch.int64)
-    cx, cy, theta = empty(f32), empty(f32), empty(f32)
-    cs, ext, best_ext = empty(f32, max_a, 2), empty(i32, max_a, 4), \
-        empty(f32, 4)
-    corners, sides, scores = empty(f32, 4, 2), empty(f32, 2), empty(f32)
-    valid = empty(torch.uint8)
     hole_sum, hole_cnt = hole_sum.contiguous(), hole_cnt.contiguous()
-    size_arr = (ctypes.c_int * len(sizes))(*sizes)
+    lib = load_library()
+    # one scratch buffer; the kernel zeroes what it accumulates into
+    scratch = torch.empty(lib.cc_rot_boxes_scratch_bytes(n, h, k),
+                          dtype=torch.uint8, device=dev)
+    corners = torch.empty((n, k, 4, 2), dtype=torch.float32, device=dev)
+    sides = torch.empty((n, k, 2), dtype=torch.float32, device=dev)
+    scores = torch.empty((n, k), dtype=torch.float32, device=dev)
+    valid = torch.empty((n, k), dtype=torch.bool, device=dev)
+    offsets, sizes = _stage_arrays()
     with torch.cuda.device(dev):
-        err = load_library().cc_rot_boxes(
+        err = lib.cc_rot_boxes(
             prob.data_ptr(), keyed.data_ptr(), valid_root.data_ptr(),
-            hole_sum.data_ptr(), hole_cnt.data_ptr(), offsets.data_ptr(),
-            ctypes.cast(size_arr, ctypes.c_void_p), len(sizes),
-            *(t.data_ptr() for t in (
-                cnt, psum, sx, sy, sxx, syy, sxy, cx, cy, theta, cs, ext,
-                best_ext, corners, sides, scores, valid)),
-            n, h, w, k, stream_of(prob))
+            hole_sum.data_ptr(), hole_cnt.data_ptr(),
+            ctypes.addressof(offsets), ctypes.addressof(sizes), len(sizes),
+            scratch.data_ptr(), corners.data_ptr(), sides.data_ptr(),
+            scores.data_ptr(), valid.data_ptr(), n, h, w, k,
+            stream_of(prob))
     check_launch(err, "rotated_boxes")
     LAUNCHES["rotated_boxes"] += 1
-    return corners, sides, scores, valid.bool()
+    return corners, sides, scores, valid
 
 
 # ------------------------------------------------------------- K7, K8 ----

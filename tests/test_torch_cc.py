@@ -116,6 +116,147 @@ def test_rotated_boxes_match_jax(scene):
     assert np.abs(scores[0].numpy() - scores_r).max() <= score_tol(scene)
 
 
+def _row_extreme_boxes(prob, keyed, valid_root, hole_sum, hole_cnt, k):
+    """The K5 kernel's reduction in plain torch: the moments as in
+    ``rotated_boxes_plain``, then each (slot, row)'s leftmost and rightmost
+    pixel by ``scatter_reduce``, and the four angle stages over those
+    points only, in the plain version's order of f32 operations. Within a
+    row u and v are monotone in x, after rounding too, so the extents over
+    the two extremes are those over every pixel."""
+    n, h, w = prob.shape
+    big = 1e9
+    key = keyed.long()
+    pix = torch.arange(h * w)
+    xs, ys = (pix % w).expand(n, -1), (pix // w).expand(n, -1)
+    fg = key < k
+    drop = torch.where(fg, key, k)
+
+    def seg(values, reduce, init=0):
+        out = values.new_full((n, k + 1), init)
+        out.scatter_reduce_(1, drop, values, reduce)
+        return out[:, :k]
+
+    count = seg(torch.ones_like(key), "sum")
+    psum = seg(prob.reshape(n, -1).double(), "sum")
+    safe = count.clamp(min=1).double()
+    cx = (seg(xs, "sum").double() / safe).float()
+    cy = (seg(ys, "sum").double() / safe).float()
+    pad = torch.zeros((n, 1))
+    dx = xs.float() - torch.cat([cx, pad], 1).gather(1, drop)
+    dy = ys.float() - torch.cat([cy, pad], 1).gather(1, drop)
+    zero = torch.zeros(())
+    sxx, syy, sxy = (seg(torch.where(fg, a * b, zero).double(), "sum")
+                     for a, b in ((dx, dx), (dy, dy), (dx, dy)))
+    theta = 0.5 * torch.atan2(2.0 * sxy.float(), sxx.float() - syy.float())
+
+    # each (slot, row) that holds a pixel gives its two extreme pixels
+    cell = torch.where(fg, key * h + ys, k * h)
+    xmin = torch.full((n, k * h + 1), w).scatter_reduce(1, cell, xs, "amin")
+    xmax = torch.full((n, k * h + 1), -1).scatter_reduce(1, cell, xs, "amax")
+    corners, sides = torch.empty((n, k, 4, 2)), torch.empty((n, k, 2))
+    for i in range(n):
+        held = torch.nonzero(xmin[i, :k * h] <= xmax[i, :k * h])[:, 0]
+        slot = (held // h).repeat_interleave(2)
+        px = torch.stack([xmin[i, held], xmax[i, held]], -1).reshape(-1)
+        pdx = px.float() - cx[i, slot]
+        pdy = (held % h).repeat_interleave(2).float() - cy[i, slot]
+        th = theta[i]
+        for offsets in cc.stage_offsets():
+            off = torch.from_numpy(offsets)
+            ang = th[None, :] + off[:, None]                      # (A, k)
+            c, s = torch.cos(ang)[:, slot], torch.sin(ang)[:, slot]
+            u = pdx * c + pdy * s
+            v = -pdx * s + pdy * c
+            index = slot.expand_as(u)
+            exts = torch.stack([
+                torch.full((len(off), k), big).scatter_reduce(
+                    1, index, u, "amin"),
+                torch.full((len(off), k), -big).scatter_reduce(
+                    1, index, u, "amax"),
+                torch.full((len(off), k), big).scatter_reduce(
+                    1, index, v, "amin"),
+                torch.full((len(off), k), -big).scatter_reduce(
+                    1, index, v, "amax")], -1)                    # (A, k, 4)
+            areas = ((exts[..., 1] - exts[..., 0])
+                     * (exts[..., 3] - exts[..., 2]))
+            best = torch.argmin(areas, dim=0)                     # first min
+            th = th + off[best]
+            ext = exts.gather(0, best[None, :, None].expand(1, -1, 4))[0]
+        umin, umax, vmin, vmax = ext.unbind(-1)
+        c, s = torch.cos(th), torch.sin(th)
+        uc, vc = (umin + umax) / 2.0, (vmin + vmax) / 2.0
+        ctr_x = cx[i] + uc * c - vc * s
+        ctr_y = cy[i] + uc * s + vc * c
+        hw, hh = (umax - umin) / 2.0, (vmax - vmin) / 2.0
+        us = torch.stack([-hw, hw, hw, -hw], -1)
+        vs = torch.stack([-hh, -hh, hh, hh], -1)
+        corners[i] = torch.stack([ctr_x[:, None] + us * c[:, None]
+                                  - vs * s[:, None],
+                                  ctr_y[:, None] + us * s[:, None]
+                                  + vs * c[:, None]], -1)
+        sides[i] = torch.stack([umax - umin, vmax - vmin], -1)
+    n_f = count.float()
+    valid = valid_root & (n_f > 0)
+    denom = n_f + hole_cnt
+    scores = torch.where(valid & (denom > 0),
+                         (psum.float() + hole_sum) / denom.clamp(min=1.0),
+                         0.0)
+    return corners, sides, scores, valid
+
+
+def _row_extreme_case(case):
+    """K5's inputs (prob, keyed, valid_root, hole_sum, hole_cnt, K) for a
+    case: a scene and its flip, a K3 sweep mask at 70x97 with prob drawn
+    from a seed, noise with more components than K (their slots from K3,
+    K4 and K6), or a slot map drawn at random, whose slots have rows
+    without a pixel between their first and last."""
+    kind, name = case.split(":")
+    rng = np.random.RandomState(5)
+    if kind == "slots":
+        k = 30
+        keyed = rng.randint(0, k + 1, (2, 40 * 57)).astype(np.int32)
+        keyed[keyed % 7 == 3] = k        # a few slots hold no pixel at all
+        return (torch.from_numpy(rng.rand(2, 40, 57).astype(np.float32)),
+                torch.from_numpy(keyed), torch.from_numpy(rng.rand(2, k) < .8),
+                torch.from_numpy(rng.rand(2, k).astype(np.float32)),
+                torch.from_numpy(rng.randint(0, 5, (2, k)).astype(np.float32)),
+                k)
+    k = K
+    if kind == "scene":
+        prob, thresh, _ = SCENES[name]()
+        prob = np.stack([prob, prob[::-1].copy()])
+        mask = prob > thresh
+    elif kind == "sweep":
+        mask = np.stack([k3_sweep_mask(name, 70, 97, seed=i)
+                         for i in range(2)])
+        prob = rng.rand(2, 70, 97).astype(np.float32)
+    else:
+        prob = rng.rand(2, 48, 61).astype(np.float32)
+        mask, k = prob > 1.0 - float(name), 40
+    prob, mask = torch.from_numpy(prob), torch.from_numpy(mask)
+    keyed, valid_root = cc.compact_slots(cc.connected_components(mask), k)
+    if kind == "noise":
+        assert int((keyed < k).sum()) < int(mask.sum())   # overflow
+    bg_keyed, _ = cc.compact_slots(cc.connected_components(~mask, 4), k)
+    return (prob, keyed, valid_root) + cc.hole_stats(mask, keyed, bg_keyed,
+                                                     prob, k) + (k,)
+
+
+@pytest.mark.parametrize("case", [f"scene:{s}" for s in sorted(SCENES)]
+                         + [f"sweep:{s}" for s in K3_SWEEP]
+                         + ["noise:0.2", "noise:0.3", "slots:random"])
+def test_row_extremes_give_the_plain_result(case):
+    """The identity the K5 kernel rests on: the angle search over each
+    (slot, row)'s two extreme pixels equals ``rotated_boxes_plain`` over
+    every pixel, bit for bit, overflow and empty slots included."""
+    args = _row_extreme_case(case)
+    got = _row_extreme_boxes(*args)
+    ref = cc.rotated_boxes_plain(*args)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert bool(ref[3].any()) == bool((args[1] < args[-1]).any())
+
+
 def test_stage_offsets_match_jax_linspace():
     """The searched angle offsets agree with cc.py's f32 linspace to an
     ulp (XLA folds the linspace constants slightly differently per use)."""

@@ -15,7 +15,7 @@ import torch
 from db_text_minimal_tpu_torch.ops import cc
 from db_text_minimal_tpu_torch.ops import db_step as D
 from db_text_minimal_tpu_torch.ops import int8 as I
-from torch_scenes import K3_SWEEP, SCENES, k3_sweep_mask
+from torch_scenes import K3_SWEEP, SCENES, k3_sweep_mask, rotated_bars
 
 pytestmark = pytest.mark.cuda
 
@@ -111,6 +111,56 @@ def test_connected_components_sweep_matches_plain_version(name, shape,
         assert torch.equal(labels, cc.connected_components_plain(mask, conn))
     assert cc.LAUNCHES["connected_components_8"] == 1
     assert cc.LAUNCHES["connected_components_4"] == 1
+
+
+def _assert_k5_matches_plain(args):
+    """K5 on the card against its plain version on the same inputs: valid
+    exact, corners and sides within 1e-3 px, scores within 1e-6."""
+    cc.reset_launches()
+    out = cc.rotated_boxes(*args)
+    assert cc.LAUNCHES["rotated_boxes"] == 1
+    ref = cc.rotated_boxes_plain(*args)
+    valid = ref[3]
+    assert torch.equal(out[3], valid)
+    for i in (0, 1):
+        torch.testing.assert_close(out[i][valid], ref[i][valid], rtol=0,
+                                   atol=1e-3)
+    torch.testing.assert_close(out[2], ref[2], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(3, 96, 384), (2, 65, 257)])
+@pytest.mark.parametrize("name", K3_SWEEP + ("bars",))
+def test_rotated_boxes_sweep_matches_plain_version(name, shape, device):
+    """K5 along the rect path (K3 -> K4 -> K3/K4 on the background -> K6)
+    on K3's hard masks with prob drawn from a seed, and on rotated bars
+    (first-minimum ties near 0 degrees), whole and ragged."""
+    n, h, w = shape
+    if name == "bars":
+        prob = np.stack([rotated_bars(h, w, seed=i) for i in range(n)])
+        mask = prob > 0.3
+    else:
+        mask = np.stack([k3_sweep_mask(name, h, w, seed=i) for i in range(n)])
+        prob = np.random.RandomState(0).rand(n, h, w).astype(np.float32)
+    prob = torch.from_numpy(prob).to(device)
+    mask = torch.from_numpy(mask).to(device)
+    keyed, valid_root = cc.compact_slots(cc.connected_components(mask), K)
+    bg_keyed, _ = cc.compact_slots(cc.connected_components(~mask, 4), K)
+    hole = cc.hole_stats(mask, keyed, bg_keyed, prob, K)
+    _assert_k5_matches_plain((prob, keyed, valid_root) + hole + (K,))
+
+
+def test_rotated_boxes_on_any_slot_map(device):
+    """K5 on a slot map drawn at random: slots scattered over the image,
+    with rows of their span that hold no pixel, and slots with no pixel."""
+    rng = np.random.RandomState(11)
+    k = 30
+    keyed = rng.randint(0, k + 1, (2, 53 * 71)).astype(np.int32)
+    keyed[keyed % 7 == 3] = k
+    args = (rng.rand(2, 53, 71).astype(np.float32), keyed, rng.rand(2, k) < .8,
+            rng.rand(2, k).astype(np.float32),
+            rng.randint(0, 5, (2, k)).astype(np.float32))
+    _assert_k5_matches_plain(tuple(torch.from_numpy(a).to(device)
+                                   for a in args) + (k,))
 
 
 def test_device_boxes_on_the_card_match_the_cpu(device):

@@ -74,6 +74,21 @@ def diagonal_hole():
     return prob, 0.3, 0.1
 
 
+def rotated_bars(h, w, seed=0):
+    """12 bars at 0, 90, +-45 degrees and at small angles near 0, where
+    neighbouring candidate angles tie on area and the first minimum of the
+    angle search decides; the seed shifts their lengths and widths. The
+    same map as chip_smoke.bars_map."""
+    prob = np.full((h, w), 0.1, np.float32)
+    angles = (0.0, 90.0, 45.0, -45.0, 0.25, -0.25, 0.5, -0.5, 1.0, -1.0,
+              3.0, -3.0)
+    for j, deg in enumerate(angles):
+        draw_rot_rect(prob, (j % 4 + 0.5) * w / 4, (j // 4 + 0.5) * h / 3,
+                      min(w // 5, h // 4) + 3 * seed, 6 + seed, deg,
+                      val=0.6 + 0.02 * j)
+    return prob
+
+
 SCENES = {"rot_rect": rot_rect, "serpentine": serpentine,
           "speckles": speckles, "empty": empty, "low_score": low_score,
           "nested_ring": nested_ring, "diagonal_hole": diagonal_hole}
