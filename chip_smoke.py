@@ -35,8 +35,9 @@ Phases, one output line each (or more), stopping at the first failure:
              (inner 256) + FusedDBHead, fp32, weights drawn from a seed and
              loaded from a .pth with the reference's key names. Every kernel
              of the rect path (K3-K6) must launch. Then time the batch, K3
-             on the served maps' masks (both connectivities) and K5 on
-             their slot maps.
+             on the served maps' masks (both connectivities), K4 on their
+             labels, K6 and K5 on their slot maps, each held to its plain
+             version.
 4. quant   - the BN-folded and int8 serving path on the same .pth and
              batch: the handler in "folded" mode (its default; P1 must not
              launch) and in "int8" mode (dynamic scales, 17 int8 convs: P1
@@ -134,8 +135,9 @@ KERNEL_IDS = {"fused_db_step": "K1", "db_step_forward": "K2",
               "connected_components_4": "K3",
               "connected_components_8_served": "K3",
               "connected_components_4_served": "K3", "compact_slots": "K4",
-              "rotated_boxes": "K5", "rotated_boxes_served": "K5",
-              "hole_stats": "K6", "bbox_stats": "K7",
+              "compact_slots_served": "K4", "rotated_boxes": "K5",
+              "rotated_boxes_served": "K5", "hole_stats": "K6",
+              "hole_stats_served": "K6", "bbox_stats": "K7",
               "pack_bits": "K7", "pack_bits_w100": "K7", "fast_boxes": "K8",
               "int8_epilogue_f32": "P1", "int8_epilogue_int8": "P1"}
 
@@ -342,34 +344,13 @@ def phase_kernels() -> list[dict]:
            lambda: cc.connected_components_plain(~mask, 4),
            px * (1 + 4), px * 4)
 
-    # K4: slots and valid roots exact (timed on the foreground labels; the
-    # main path runs it on both label maps)
+    # K4 timed on the foreground labels; the main path runs it on both
+    # label maps. K6, the route step alone on the background's slots.
+    rows.append(k4_row("compact_slots", labels))
     keyed, valid_root = cc.compact_slots(labels, K)
-    keyed_p, valid_root_p = cc.compact_slots_plain(labels, K)
-    err = max((keyed - keyed_p).abs().max().item(),
-              (valid_root ^ valid_root_p).sum().item())
-    record("compact_slots", 114, err, 0,
-           lambda: cc.compact_slots(labels, K),
-           lambda: cc.compact_slots_plain(labels, K),
-           px * (4 + 4) + N * K, px * 4)
-
-    # K6, the route step alone on the background's slots: hole counts
-    # exact; hole sums are f64 sums rounded to f32, so the kernel's atomic
-    # order may move them by an ulp. It reads the mask and both slot maps
-    # at every pixel and prob at the hole pixels only.
     bg_keyed, _ = cc.compact_slots(bg_labels, K)
-    hole = cc.hole_stats(mask, keyed, bg_keyed, prob, K)
-    hole_p = cc.hole_stats_plain(mask, keyed, bg_keyed, prob, K)
-    if not torch.equal(hole[1], hole_p[1]):
-        raise AssertionError("hole_stats: hole counts differ")
-    err = (hole[0] - hole_p[0]).abs().max().item()
-    tol = 1e-6 * max(1.0, hole_p[0].abs().max().item())
-    hole_px = int(hole_p[1].sum().item())
-    bg_px = int((~mask).sum().item())
-    record("hole_stats", 383, err, tol,
-           lambda: cc.hole_stats(mask, keyed, bg_keyed, prob, K),
-           lambda: cc.hole_stats_plain(mask, keyed, bg_keyed, prob, K),
-           px * (1 + 4 + 4) + hole_px * 4 + N * K * 8, bg_px * 8 + px)
+    row, hole, hole_p = k6_row("hole_stats", mask, keyed, bg_keyed, prob)
+    rows.append(row)
 
     # K5, held to its plain version on the same inputs (check_k5)
     out = cc.rotated_boxes(prob, keyed, valid_root, *hole, K)
@@ -383,6 +364,44 @@ def phase_kernels() -> list[dict]:
     log(f"kernels ok: {int(out_p[3].sum())} valid components over {N} maps "
         f"of {SIZE}x{SIZE}, {int((keyed < K).sum())} foreground pixels")
     return rows
+
+
+def k4_row(name: str, labels: torch.Tensor) -> dict:
+    """K4 on ``labels`` against its plain version: slots and valid roots
+    exact. Bytes: the label read and the slot written, 8 B a pixel, and a
+    byte a valid root."""
+    keyed, valid_root = cc.compact_slots(labels, K)
+    keyed_p, valid_root_p = cc.compact_slots_plain(labels, K)
+    err = max((keyed - keyed_p).abs().max().item(),
+              (valid_root ^ valid_root_p).sum().item())
+    px = labels.numel()
+    return kernel_row(name, "cuda", SRC, f"{JAX_CC}:114", err, 0,
+                      lambda: cc.compact_slots(labels, K),
+                      lambda: cc.compact_slots_plain(labels, K),
+                      px * (4 + 4) + labels.shape[0] * K, px * 4)
+
+
+def k6_row(name, mask, keyed, bg_keyed, prob):
+    """K6 against its plain version: hole counts exact; hole sums are f64
+    sums rounded to f32, so the kernel's atomic order may move them by an
+    ulp. It reads the mask and both slot maps at every pixel and prob at
+    the hole pixels only. Returns the row and both results."""
+    hole = cc.hole_stats(mask, keyed, bg_keyed, prob, K)
+    hole_p = cc.hole_stats_plain(mask, keyed, bg_keyed, prob, K)
+    if not torch.equal(hole[1], hole_p[1]):
+        raise AssertionError(f"{name}: hole counts differ")
+    err = (hole[0] - hole_p[0]).abs().max().item()
+    tol = 1e-6 * max(1.0, hole_p[0].abs().max().item())
+    px = mask.numel()
+    hole_px = int(hole_p[1].sum().item())
+    bg_px = int((~mask).sum().item())
+    row = kernel_row(
+        name, "cuda", SRC, f"{JAX_CC}:383", err, tol,
+        lambda: cc.hole_stats(mask, keyed, bg_keyed, prob, K),
+        lambda: cc.hole_stats_plain(mask, keyed, bg_keyed, prob, K),
+        px * (1 + 4 + 4) + hole_px * 4 + mask.shape[0] * K * 8,
+        bg_px * 8 + px)
+    return row, hole, hole_p
 
 
 def check_k5(out, ref, what: str) -> float:
@@ -532,10 +551,11 @@ def phase_k5_sweep() -> None:
 
 
 def phase_served(preds: torch.Tensor) -> list[dict]:
-    """K3 and K5 rows on the served batch's maps at the handler's threshold
+    """K3-K6 rows on the served batch's maps at the handler's threshold
     0.3: K3 on the 8-connected foreground and the 4-connected background,
-    as the rect and polygon paths label them, and K5 on the slot maps that
-    the rect path gives it (K = 1000)."""
+    as the rect and polygon paths label them, K4 on the foreground labels,
+    K6 on the slot maps of both, and K5 on the slot maps that the rect path
+    gives it (K = 1000)."""
     prob = preds[..., 0].contiguous()
     mask = prob > 0.3
     px = mask.numel()
@@ -548,6 +568,11 @@ def phase_served(preds: torch.Tensor) -> list[dict]:
             err, 0, lambda m=m, conn=conn: cc.connected_components(m, conn),
             lambda m=m, conn=conn: cc.connected_components_plain(m, conn),
             px * (1 + 4), px * conn))
+    labels = cc.connected_components(mask)
+    rows.append(k4_row("compact_slots_served", labels))
+    keyed, _ = cc.compact_slots(labels, K)
+    bg_keyed, _ = cc.compact_slots(cc.connected_components(~mask, 4), K)
+    rows.append(k6_row("hole_stats_served", mask, keyed, bg_keyed, prob)[0])
     args = (prob,) + k5_inputs(prob, mask) + (K,)
     out_p = cc.rotated_boxes_plain(*args)
     rows.append(kernel_row(
@@ -555,7 +580,7 @@ def phase_served(preds: torch.Tensor) -> list[dict]:
         check_k5(cc.rotated_boxes(*args), out_p, "rotated_boxes_served"),
         1e-3, lambda: cc.rotated_boxes(*args),
         lambda: cc.rotated_boxes_plain(*args), *k5_work(args[1], SIZE)))
-    log(f"served k3 and k5 ok: {int(mask.sum())} of {px} pixels set over "
+    log(f"served k3-k6 ok: {int(mask.sum())} of {px} pixels set over "
         f"{N} maps, {int(out_p[3].sum())} valid slots")
     return rows
 

@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""Time chosen device postprocess kernels of two checkouts in turns on one
+NVIDIA GPU.
+
+Run from the repository root, with another checkout of the repository
+(for example the parent commit, unpacked by ``git archive``)::
+
+    python3 compare_kernels.py OTHER_CHECKOUT [--kernels k4,k6,k5] [--turns 2]
+
+The kernels are K4 (``ops/cc.compact_slots``, on the 8-connected
+foreground's labels), K6 (``ops/cc.hole_stats``) and K5
+(``ops/cc.rotated_boxes``). The runs alternate, the other checkout first:
+other, this, this, other, ... Each run is a process of its own, started in
+the root of its checkout, so that it imports that checkout's package and
+``chip_smoke.py`` and builds that checkout's kernels. A run makes each
+kernel's inputs by that checkout's kernels (K3 -> K4 on the foreground, K3
+-> K4 on the 4-connected background -> K6 -> K5) on the 8 kernel scenes of
+``chip_smoke.py`` and on the maps of the batch it serves (its
+``phase_serve``, weights from the seed), holds each chosen kernel to its
+plain version (K4 exact, K6's counts exact and sums within 1e-6, K5's
+valid slots exact), and prints one line ``KTIME {json}``: per input and
+kernel the card's time per call from torch.profiler, split by launch, and
+the time per call from CUDA events; and the card's time per call of
+``device_boxes`` and ``device_poly_stats`` on each input. Exits non-zero
+when no GPU is available or a run fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+KERNELS = ("k4", "k6", "k5")
+
+
+def hold(kernel: str, got, ref, label: str) -> float:
+    """A kernel's result against its plain version's; returns its error."""
+    import torch
+
+    if kernel == "k4":
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"{label}: slots differ")
+        return 0.0
+    if kernel == "k6":
+        if not torch.equal(got[1], ref[1]):
+            raise AssertionError(f"{label}: hole counts differ")
+        err = (got[0] - ref[0]).abs().max().item() if ref[0].numel() else 0.0
+        if err > 1e-6 * max(1.0, ref[0].abs().max().item()):
+            raise AssertionError(f"{label}: hole sums {err} apart")
+        return err
+    valid = ref[3]
+    if not torch.equal(got[3], valid):
+        raise AssertionError(f"{label}: valid slots differ")
+    return max((got[i] - ref[i])[valid].abs().max().item()
+               if valid.any() else 0.0 for i in (0, 1))
+
+
+def measure(label: str, kernels: list[str]) -> dict:
+    """The chosen kernels of the checkout in the working directory, on
+    both inputs."""
+    sys.path.insert(0, os.getcwd())
+    import numpy as np
+    import torch
+
+    import chip_smoke as S
+    from db_text_minimal_tpu_torch.ops import cc
+
+    dev = torch.device("cuda")
+    cc.load_library()
+    scenes = torch.from_numpy(
+        np.stack([S.kernel_scene(i) for i in range(S.N)])).to(dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        _, _, preds, _ = S.phase_serve(workdir)
+    out = {"label": label, "root": os.getcwd()}
+    for name, prob in (("scenes", scenes), ("served",
+                                            preds[..., 0].contiguous())):
+        mask = prob > 0.3
+        labels = cc.connected_components(mask)
+        keyed, valid_root = cc.compact_slots(labels, S.K)
+        bg_keyed, _ = cc.compact_slots(cc.connected_components(~mask, 4),
+                                       S.K)
+        hole = cc.hole_stats(mask, keyed, bg_keyed, prob, S.K)
+        calls = {
+            "k4": ((labels, S.K), cc.compact_slots, cc.compact_slots_plain),
+            "k6": ((mask, keyed, bg_keyed, prob, S.K), cc.hole_stats,
+                   cc.hole_stats_plain),
+            "k5": ((prob, keyed, valid_root) + hole + (S.K,),
+                   cc.rotated_boxes, cc.rotated_boxes_plain)}
+        out[name] = {}
+        for kernel in kernels:
+            args, fn, plain = calls[kernel]
+            err = hold(kernel, fn(*args), plain(*args),
+                       f"{label}, {name}, {kernel}")
+            dev_ms, split = S.device_kernels(lambda: fn(*args), 50)
+            out[name][kernel] = {
+                "err": err, "ms": S.timed(lambda: fn(*args), 50),
+                "device_ms": dev_ms,
+                "split": {S.short_name(k): v for k, v in split.items()}}
+        for driver in ("device_boxes", "device_poly_stats"):
+            out[name][f"{driver}_device_ms"], _ = S.device_kernels(
+                lambda: getattr(cc, driver)(prob), 20)
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("other", nargs="?",
+                        help="root of the checkout to compare with")
+    parser.add_argument("--kernels", default="k4,k6,k5",
+                        help="comma-separated, of k4, k6, k5 (default all)")
+    parser.add_argument("--turns", type=int, default=2,
+                        help="pairs of runs (default 2)")
+    parser.add_argument("--one", metavar="LABEL",
+                        help="measure the checkout in the working directory")
+    args = parser.parse_args()
+    kernels = [k for k in args.kernels.split(",") if k]
+    if not kernels or any(k not in KERNELS for k in kernels):
+        parser.error(f"--kernels takes some of {','.join(KERNELS)}")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("compare_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    if args.one:
+        print("KTIME " + json.dumps(measure(args.one, kernels)), flush=True)
+        return 0
+    if not args.other:
+        parser.error("give the root of the other checkout")
+    this = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(args.other)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    order = []
+    for turn in range(args.turns):
+        pair = [("other", other), ("this", this)]
+        order += pair if turn % 2 == 0 else pair[::-1]
+    for label, root in order:
+        run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--one", label, "--kernels", ",".join(kernels)],
+                             cwd=root)
+        if run.returncode != 0:
+            print(f"compare_kernels: the run of {root} failed",
+                  file=sys.stderr)
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -389,98 +389,187 @@ __global__ void k3_flatten(int* labels, int HW) {
 }
 
 // ---------------------------------------------------------------- K4 ------
-// Slot of a pixel = min(rank of its root among all roots in raster order, K).
-// Design: the rank is an exclusive count of roots, done with warp ballots
-// (32 pixels per instruction) inside 1024-pixel chunks, one scan of the
-// per-chunk counts per image, and a gather of the root's rank through the
-// label. This equals the TPU version's segment-min + searchsorted
-// (cc.py:135-142) and reads each label twice.
+// Slot of a pixel = min(rank of its root among the image's roots in raster
+// order, K); background K. Replaces _compact_slots
+// (db_text_minimal_tpu/ops/pallas/cc.py:114-144), whose segment-min and
+// searchsorted become a scan and a gather.
+//
+// Bound: 4 B of label in and 4 B of slot out per pixel, 0.0078 ms at
+// 8x640x640 at the H100's 3.35 TB/s; a pixel costs a compare and a popc.
+//
+// K3's labels make the gather cheap: a pixel p is a root iff labels[p] == p,
+// and every foreground label is a root. So a root's clamped rank is written
+// in place into keyed[root], and every pixel then reads keyed[labels[p]]:
+// no rank map, and min(min(r, K), K) = min(r, K). Two launches after one
+// memset of the scratch:
+//
+// - k4_rank: a single-pass scan with decoupled look-back (Merrill and
+//   Garland, 2016). A block of 1024 threads takes a tile of 16384 pixels,
+//   16 a thread in four coalesced 16-byte loads (where the image is
+//   aligned), so that the tiles of 8 maps of 640x640 all fit the card at
+//   once; ballots and __popc count the roots of a warp, a warp scans the
+//   128 (chunk, warp) counts. The
+//   tile's index comes from a per-image ticket, not from blockIdx, so every
+//   tile it waits on belongs to a block that is already running. The tile
+//   publishes its count, then warp 0 reads its predecessors' status words
+//   32 at a time back to the nearest inclusive prefix and publishes its
+//   own; flag and count share one 64-bit word, so one store publishes both.
+//   Roots then write their clamped rank into keyed; the image's last tile
+//   writes valid_root[k] = k < the number of roots.
+// - k4_assign: keyed[p] = labels[p] >= 0 ? keyed[labels[p]] : K, 4 pixels
+//   a thread. A root reads and writes its own, unchanged value, and no
+//   other pixel's slot is ever read, so the in-place gather has no race.
 
-constexpr int CHUNK = 1024;
+constexpr int K4_THREADS = 1024, K4_CHUNKS = 4;
+constexpr int K4_CHUNK = 4 * K4_THREADS, K4_TILE = K4_CHUNKS * K4_CHUNK;
+// a status word: the flag in the top two bits, the count in the low 32
+constexpr unsigned long long K4_AGGREGATE = 1ull << 62,
+                             K4_INCLUSIVE = 2ull << 62;
 
-__global__ void k4_count(const int* __restrict__ labels, int HW,
-                         int* chunk_counts, int nchunk) {
-  __shared__ int warp_tot[CHUNK / 32];
-  const int p = blockIdx.x * CHUNK + threadIdx.x;
-  const size_t base = (size_t)blockIdx.y * HW;
-  const bool root = p < HW && labels[base + p] == p;
-  const unsigned b = __ballot_sync(FULL, root);
-  if ((threadIdx.x & 31) == 0) warp_tot[threadIdx.x >> 5] = __popc(b);
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int v = warp_tot[threadIdx.x];
+__device__ __forceinline__ unsigned long long k4_load(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+__device__ __forceinline__ void k4_store(unsigned long long* p,
+                                         unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// The sum of the counts of tiles [0, tile) of one image (status holds its
+// words), read by warp 0 of the tile's block.
+__device__ int k4_look_back(const unsigned long long* status, int tile) {
+  const int lane = threadIdx.x & 31;
+  int prefix = 0;
+  for (int top = tile - 1;; top -= 32) {
+    const int t = top - lane;
+    // below tile 0 reads as an inclusive prefix of 0, so the walk ends
+    unsigned long long s = t >= 0 ? k4_load(status + t) : K4_INCLUSIVE;
+    while (__any_sync(FULL, (s >> 62) == 0))
+      if ((s >> 62) == 0) s = k4_load(status + t);
+    // the nearest inclusive prefix and every count after it
+    const unsigned inclusive = __ballot_sync(FULL, (s >> 62) == 2);
+    const int first = inclusive ? __ffs(inclusive) - 1 : 32;
+    int v = lane <= first ? (int)(unsigned)s : 0;
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-    if (threadIdx.x == 0) chunk_counts[blockIdx.y * nchunk + blockIdx.x] = v;
+    prefix += v;
+    if (inclusive) return prefix;
   }
 }
 
-// One block of 1024 threads per image: exclusive scan of the chunk counts in
-// place, then valid_root[k] = k < number of roots.
-__global__ void k4_scan(int* chunk_counts, int nchunk, int K,
-                        uint8_t* valid_root) {
-  __shared__ int warp_sum[32];
-  __shared__ int total;
-  int* c = chunk_counts + blockIdx.x * nchunk;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int per = (nchunk + blockDim.x - 1) / blockDim.x;
-  const int lo = min(t * per, nchunk), hi = min(lo + per, nchunk);
-  int own = 0;
-  for (int i = lo; i < hi; ++i) own += c[i];
-  int incl = own;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl += v;
+// A tile is K4_CHUNKS chunks of 4 pixels a thread, so that each load
+// instruction of a warp reads 512 neighbouring bytes; in raster order the
+// (chunk, warp) pairs come chunk by chunk.
+__global__ void __launch_bounds__(K4_THREADS)
+k4_rank(const int* __restrict__ labels, int HW, int K, int ntiles, bool vec,
+        unsigned long long* status, unsigned* tickets, int* keyed,
+        uint8_t* valid_root) {
+  __shared__ int warp_count[K4_CHUNKS * 32];
+  __shared__ int tile_s, prefix_s, roots_s;
+  const int n = blockIdx.y, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0) {
+    tile_s = (int)atomicAdd(&tickets[n], 1u);
+    roots_s = -1;
   }
-  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  const int tile = tile_s;
+  const int* lab_base = labels + (size_t)n * HW;
+  int* keyed_base = keyed + (size_t)n * HW;
+  int lab[K4_CHUNKS][4];
+#pragma unroll
+  for (int c = 0; c < K4_CHUNKS; ++c) {
+    const int p0 = tile * K4_TILE + c * K4_CHUNK + 4 * t;
+    if (vec && p0 + 3 < HW) {
+      const int4 v = *reinterpret_cast<const int4*>(lab_base + p0);
+      lab[c][0] = v.x; lab[c][1] = v.y; lab[c][2] = v.z; lab[c][3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        lab[c][j] = p0 + j < HW ? lab_base[p0 + j] : -1;
+    }
+  }
+  // ranks within the warp: lane l's pixels come after lanes 0..l-1's
+  const unsigned below = (1u << lane) - 1u;
+  int before[K4_CHUNKS];
+#pragma unroll
+  for (int c = 0; c < K4_CHUNKS; ++c) {
+    const int p0 = tile * K4_TILE + c * K4_CHUNK + 4 * t;
+    int count = 0;
+    before[c] = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned b = __ballot_sync(FULL, lab[c][j] == p0 + j);
+      before[c] += __popc(b & below);
+      count += __popc(b);
+    }
+    if (lane == 0) warp_count[c * 32 + warp] = count;
+  }
   __syncthreads();
   if (warp == 0) {
-    int w = lane < (int)(blockDim.x >> 5) ? warp_sum[lane] : 0;
-    int wincl = w;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(FULL, wincl, o);
-      if (lane >= o) wincl += v;
+    // lane l scans entries 4l .. 4l + 3 of the (chunk, warp) counts
+    int e[4], sum = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      e[i] = warp_count[4 * lane + i];
+      sum += e[i];
     }
-    warp_sum[lane] = wincl - w;
-    if (lane == 31) total = wincl;
+    int incl = sum;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += v;
+    }
+    int run = incl - sum;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      warp_count[4 * lane + i] = run;
+      run += e[i];
+    }
+    const int total = __shfl_sync(FULL, incl, 31);
+    unsigned long long* st = status + (size_t)n * ntiles;
+    if (lane == 0)
+      k4_store(st + tile, (tile == 0 ? K4_INCLUSIVE : K4_AGGREGATE) |
+                              (unsigned)total);
+    const int prefix = tile == 0 ? 0 : k4_look_back(st, tile);
+    if (lane == 0) {
+      if (tile > 0)
+        k4_store(st + tile, K4_INCLUSIVE | (unsigned)(prefix + total));
+      prefix_s = prefix;
+      if (tile == ntiles - 1) roots_s = prefix + total;
+    }
   }
   __syncthreads();
-  int run = warp_sum[warp] + incl - own;
-  for (int i = lo; i < hi; ++i) {
-    const int v = c[i];
-    c[i] = run;
-    run += v;
+#pragma unroll
+  for (int c = 0; c < K4_CHUNKS; ++c) {
+    const int p0 = tile * K4_TILE + c * K4_CHUNK + 4 * t;
+    int rank = prefix_s + warp_count[c * 32 + warp] + before[c];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (lab[c][j] == p0 + j) keyed_base[p0 + j] = min(rank++, K);
   }
-  uint8_t* vr = valid_root + (size_t)blockIdx.x * K;
-  for (int k = t; k < K; k += blockDim.x) vr[k] = k < total;
-}
-
-__global__ void k4_rank(const int* __restrict__ labels, int HW,
-                        const int* __restrict__ chunk_offsets, int nchunk,
-                        int* rank_at) {
-  __shared__ int warp_tot[CHUNK / 32];
-  const int p = blockIdx.x * CHUNK + threadIdx.x;
-  const size_t base = (size_t)blockIdx.y * HW;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool root = p < HW && labels[base + p] == p;
-  const unsigned b = __ballot_sync(FULL, root);
-  if (lane == 0) warp_tot[warp] = __popc(b);
-  __syncthreads();
-  if (root) {
-    int r = chunk_offsets[blockIdx.y * nchunk + blockIdx.x] +
-            __popc(b & ((1u << lane) - 1u));
-    for (int w = 0; w < warp; ++w) r += warp_tot[w];
-    rank_at[base + p] = r;
+  if (roots_s >= 0) {   // the image's last tile
+    uint8_t* vr = valid_root + (size_t)n * K;
+    for (int k = t; k < K; k += K4_THREADS) vr[k] = k < roots_s;
   }
 }
 
-__global__ void k4_assign(const int* __restrict__ labels,
-                          const int* __restrict__ rank_at, int HW, int K,
-                          int* keyed) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= HW) return;
+__global__ void k4_assign(const int* __restrict__ labels, int HW, int K,
+                          bool vec, int* keyed) {
+  const int p0 = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (p0 >= HW) return;
   const size_t base = (size_t)blockIdx.y * HW;
-  const int lab = labels[base + p];
-  keyed[base + p] = lab >= 0 ? min(rank_at[base + lab], K) : K;
+  int* slots = keyed + base;
+  if (vec && p0 + 3 < HW) {
+    int4 v = *reinterpret_cast<const int4*>(labels + base + p0);
+    v.x = v.x >= 0 ? slots[v.x] : K;
+    v.y = v.y >= 0 ? slots[v.y] : K;
+    v.z = v.z >= 0 ? slots[v.z] : K;
+    v.w = v.w >= 0 ? slots[v.w] : K;
+    *reinterpret_cast<int4*>(slots + p0) = v;
+  } else {
+    for (int j = 0; j < 4 && p0 + j < HW; ++j) {
+      const int lab = labels[base + p0 + j];
+      slots[p0 + j] = lab >= 0 ? slots[lab] : K;
+    }
+  }
 }
 
 // ---------------------------------------------------------------- K5 ------
@@ -940,80 +1029,229 @@ k5_search(const uint8_t* __restrict__ valid_root,
 // Holes = background components (4-connected, from K3/K4) that touch no
 // image border; each routes its prob sum and pixel count to the enclosing
 // foreground slot, the MIN fg slot among its pixels' 8-neighbours (a
-// component nested in the hole has a later root, so a larger slot). Slot K
-// is a real bucket here exactly as in the TPU version (fg pixels and
-// overflow bg components share it). Design: bound by reading the three
-// per-pixel maps; border and enclosing updates are skipped when they would
-// not change the stored value, so the large outside background costs reads,
-// not atomics; the hole sums use per-thread runs like K5.
+// component nested in the hole has a later root, so a larger slot). Bg slot
+// K is a real bucket exactly as in the TPU version: overflow bg components
+// share it and route to their common enclosing slot. Replaces _hole_stats
+// (db_text_minimal_tpu/ops/pallas/cc.py:383-444).
+//
+// Bound: 1 B of mask and 4 B of each slot map in per pixel, 4 B of prob per
+// hole pixel, 8 B a slot out: 0.0092 ms at 8x640x640 and K = 1000 at the
+// H100's 3.35 TB/s. A pixel costs a few compares, so bytes bound it.
+//
+// Two passes over the pixels. Each thread loads all its pixels before it
+// uses any, keeps a run while the slot stays the same, and a warp whose
+// lanes with a run share one slot reduces it to one lane before any atomic.
+// One memset zeroes the scratch that both passes accumulate into:
+//
+// - k6_scan: a tile of 32 columns by 32 rows, a block of 32x8 threads, each
+//   thread a strip of 4 rows of one column. It stages the tile's fg slots
+//   with a 1-pixel halo in shared memory (34x34 words for 1024 pixels) and
+//   takes each bg pixel's 8-neighbour min from column minima there. Per bg
+//   slot it keeps {border touched, K - enclosing}: 0 stands for "none
+//   yet", so the memset is the fill. A slot is updated only where that
+//   would change the stored value, so the large outside background costs
+//   reads, not atomics.
+// - k6_accumulate: 8 pixels a thread in two groups of 4 neighbours (4-byte
+//   mask and 16-byte slot loads). Each bg pixel's target is taken from that
+//   table as the pixel is read (enclosing where it is a slot and the
+//   component touches no border, else none), so the target step needs no
+//   launch of its own. Hole pixels add prob (f64) and 1 to their target's
+//   sums. The last block of each image, by a counter in the scratch,
+//   converts the image's sums to the f32 outputs, so there are no fills
+//   and casts around the kernels.
+//
+// One pass that sums prob per bg slot and routes the K + 1 slot sums in
+// each image's last block is slower on the H100 (0.033-0.036 ms against
+// 0.028-0.029 on 8x640x640): it reads prob at every bg pixel, its per-slot
+// atomics meet on the outside background and slot K, and the route runs
+// serially after every other block.
 
-__global__ void k6_scan(const uint8_t* __restrict__ mask,
-                        const int* __restrict__ fg_keyed,
-                        const int* __restrict__ bg_keyed, int H, int W, int K,
-                        int* border, int* enclosing) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
+constexpr int K6_TX = 32, K6_TY = 8, K6_STRIP = 4, K6_TH = K6_TY * K6_STRIP;
+
+// The scratch of cc_hole_route, one buffer zeroed by one memset.
+struct K6Scratch {
+  double* sum;       // (N, K) hole prob sums
+  int2* table;       // (N, K + 1) per bg slot {border touched, K - enclosing}
+  int* cnt;          // (N, K) hole pixel counts
+  unsigned* done;    // (N) blocks of the image through k6_accumulate
+};
+
+size_t k6_scratch_bytes(int N, int K) {
+  const size_t NK = (size_t)N * K;
+  return NK * sizeof(double) + (NK + N) * sizeof(int2) + NK * sizeof(int) +
+         N * sizeof(unsigned);
+}
+
+K6Scratch k6_scratch(void* base, int N, int K) {
+  const size_t NK = (size_t)N * K;
+  K6Scratch s;
+  s.sum = static_cast<double*>(base);
+  s.table = reinterpret_cast<int2*>(s.sum + NK);
+  s.cnt = reinterpret_cast<int*>(s.table + NK + N);
+  s.done = reinterpret_cast<unsigned*>(s.cnt + NK);
+  return s;
+}
+
+// The slot that every lane with a run (cur >= 0) holds; -1 where those
+// lanes differ or no lane has a run.
+__device__ __forceinline__ int k6_common(int cur) {
+  const int lo = __reduce_min_sync(FULL, cur >= 0 ? cur : 0x7fffffff);
+  const int hi = __reduce_max_sync(FULL, cur);
+  return lo == hi ? lo : -1;
+}
+
+__device__ __forceinline__ void k6_enclose(int2* tab, int slot, int best,
+                                           int K) {
+  if (slot >= 0 && best < K && tab[slot].y < K - best)
+    atomicMax(&tab[slot].y, K - best);
+}
+
+__global__ void __launch_bounds__(K6_TX * K6_TY)
+k6_scan(const uint8_t* __restrict__ mask, const int* __restrict__ fg_keyed,
+        const int* __restrict__ bg_keyed, int H, int W, int K, int2* table) {
+  __shared__ int halo[K6_TH + 2][K6_TX + 2];
+  const int x0 = blockIdx.x * K6_TX, y0 = blockIdx.y * K6_TH;
   const size_t base = (size_t)blockIdx.z * H * W;
-  const size_t sbase = (size_t)blockIdx.z * (K + 1);
-  const int p = y * W + x;
-  const int key = bg_keyed[base + p];
-  if (x == 0 || y == 0 || x == W - 1 || y == H - 1) {
-    if (border[sbase + key] == 0) atomicMax(&border[sbase + key], 1);
+  int2* tab = table + (size_t)blockIdx.z * (K + 1);
+  const int tx = threadIdx.x, x = x0 + tx, r0 = threadIdx.y * K6_STRIP;
+  // the strip's own pixels first, so that their loads overlap the halo's;
+  // a pixel past the image reads as foreground off the border
+  bool bg[K6_STRIP];
+  int key[K6_STRIP];
+#pragma unroll
+  for (int j = 0; j < K6_STRIP; ++j) {
+    const int y = y0 + r0 + j;
+    const bool in = x < W && y < H;
+    const size_t p = base + (size_t)y * W + x;
+    bg[j] = in && !mask[p];
+    key[j] = in ? bg_keyed[p] : 0;
   }
-  if (mask[base + p]) return;
-  int nb = K;
-  for (int dy = -1; dy <= 1; ++dy) {
-    const int yy = y + dy;
-    if (yy < 0 || yy >= H) continue;
-    for (int dx = -1; dx <= 1; ++dx) {
-      const int xx = x + dx;
-      if ((dx == 0 && dy == 0) || xx < 0 || xx >= W) continue;
-      nb = min(nb, fg_keyed[base + yy * W + xx]);
+  for (int i = threadIdx.y * K6_TX + tx; i < (K6_TH + 2) * (K6_TX + 2);
+       i += K6_TX * K6_TY) {
+    const int hy = i / (K6_TX + 2), hx = i - hy * (K6_TX + 2);
+    const int y = y0 + hy - 1, xx = x0 + hx - 1;
+    halo[hy][hx] = y >= 0 && y < H && xx >= 0 && xx < W
+                       ? fg_keyed[base + (size_t)y * W + xx]
+                       : K;
+  }
+  __syncthreads();
+  // rows r0 - 1 .. r0 + K6_STRIP of the column and its two neighbours: the
+  // min over all three columns, and over the two side columns only
+  int m3[K6_STRIP + 2], side[K6_STRIP + 2];
+#pragma unroll
+  for (int i = 0; i < K6_STRIP + 2; ++i) {
+    const int* row = halo[r0 + i];
+    side[i] = min(row[tx], row[tx + 2]);
+    m3[i] = min(side[i], row[tx + 1]);
+  }
+  int cur = -1, best = K;
+#pragma unroll
+  for (int j = 0; j < K6_STRIP; ++j) {
+    const int y = y0 + r0 + j;
+    if (x < W && y < H && (x == 0 || y == 0 || x == W - 1 || y == H - 1) &&
+        tab[key[j]].x == 0)
+      atomicExch(&tab[key[j]].x, 1);
+    if (!bg[j]) continue;
+    if (key[j] != cur) {
+      k6_enclose(tab, cur, best, K);
+      cur = key[j];
+      best = K;
+    }
+    best = min(best, min(min(m3[j], m3[j + 2]), side[j + 1]));
+  }
+  const int common = k6_common(cur);
+  if (common >= 0) {
+    best = __reduce_min_sync(FULL, cur >= 0 ? best : K);
+    cur = (threadIdx.x & 31) == 0 ? common : -1;
+  }
+  k6_enclose(tab, cur, best, K);
+}
+
+// k6_accumulate: K6_GROUPS groups of 4 neighbouring pixels a thread, each
+// one 4-byte mask load and one 16-byte slot load where the image is
+// aligned; a warp's group covers 128 neighbouring pixels.
+constexpr int K6_THREADS = 256, K6_GROUPS = 2;
+constexpr int K6_BLOCK_PX = 4 * K6_GROUPS * K6_THREADS;
+
+__global__ void __launch_bounds__(K6_THREADS)
+k6_accumulate(const uint8_t* __restrict__ mask,
+              const int* __restrict__ bg_keyed,
+              const float* __restrict__ prob,
+              const int2* __restrict__ table, int HW, int K, bool vec,
+              K6Scratch s, float* hole_sum, float* hole_cnt) {
+  __shared__ bool last;
+  const size_t base = (size_t)blockIdx.y * HW;
+  const size_t sbase = (size_t)blockIdx.y * K;
+  const int2* tab = table + (size_t)blockIdx.y * (K + 1);
+  const int t = threadIdx.x;
+  // every pixel's target (K for foreground, past the image, and bg
+  // components that are not holes), all loads issued before any is used
+  int target[4 * K6_GROUPS];
+#pragma unroll
+  for (int g = 0; g < K6_GROUPS; ++g) {
+    const int p0 = blockIdx.x * K6_BLOCK_PX + (g * K6_THREADS + t) * 4;
+    unsigned m = 0;   // byte j: pixel p0 + j is foreground or past the image
+    int keys[4];
+    if (vec && p0 + 3 < HW) {
+      m = *reinterpret_cast<const unsigned*>(mask + base + p0);
+      const int4 v = *reinterpret_cast<const int4*>(bg_keyed + base + p0);
+      keys[0] = v.x; keys[1] = v.y; keys[2] = v.z; keys[3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = p0 + j < HW;
+        m |= (in ? mask[base + p0 + j] : 1u) << (8 * j);
+        keys[j] = in ? bg_keyed[base + p0 + j] : 0;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int2 e = make_int2(1, 0);
+      if (((m >> (8 * j)) & 0xff) == 0) e = tab[keys[j]];
+      target[4 * g + j] = e.y > 0 && e.x == 0 ? K - e.y : K;
     }
   }
-  if (nb < K && enclosing[sbase + key] > nb)
-    atomicMin(&enclosing[sbase + key], nb);
-}
-
-__global__ void k6_target(const int* __restrict__ border, int* enclosing,
-                          int K, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int e = enclosing[i];
-  enclosing[i] = (e < K && border[i] == 0) ? e : K;
-}
-
-__global__ void k6_accumulate(const uint8_t* __restrict__ mask,
-                              const int* __restrict__ bg_keyed,
-                              const int* __restrict__ target,
-                              const float* __restrict__ prob, int HW, int K,
-                              double* hole_sum, int* hole_cnt) {
-  const size_t base = (size_t)blockIdx.y * HW;
-  const size_t tbase = (size_t)blockIdx.y * (K + 1);
-  const size_t sbase = (size_t)blockIdx.y * K;
-  const int p0 = (blockIdx.x * blockDim.x + threadIdx.x) * RUN;
   int cur = -1, c = 0;
   double ps = 0.0;
-  for (int j = 0; j < RUN; ++j) {
-    const int p = p0 + j;
-    if (p >= HW) break;
-    if (mask[base + p]) continue;
-    const int t = target[tbase + bg_keyed[base + p]];
-    if (t >= K) continue;
-    if (t != cur) {
+#pragma unroll
+  for (int i = 0; i < 4 * K6_GROUPS; ++i) {
+    if (target[i] >= K) continue;
+    const int p = blockIdx.x * K6_BLOCK_PX + ((i / 4) * K6_THREADS + t) * 4 +
+                  i % 4;
+    if (target[i] != cur) {
       if (cur >= 0) {
-        atomicAdd(&hole_sum[sbase + cur], ps);
-        atomicAdd(&hole_cnt[sbase + cur], c);
+        atomicAdd(&s.sum[sbase + cur], ps);
+        atomicAdd(&s.cnt[sbase + cur], c);
       }
-      cur = t; c = 0; ps = 0.0;
+      cur = target[i];
+      c = 0;
+      ps = 0.0;
     }
     c += 1;
     ps += (double)prob[base + p];
   }
+  const int common = k6_common(cur);
+  if (common >= 0) {
+    c = warp_sum(c);
+    ps = warp_sum(ps);
+    cur = (t & 31) == 0 ? common : -1;
+  }
   if (cur >= 0) {
-    atomicAdd(&hole_sum[sbase + cur], ps);
-    atomicAdd(&hole_cnt[sbase + cur], c);
+    atomicAdd(&s.sum[sbase + cur], ps);
+    atomicAdd(&s.cnt[sbase + cur], c);
+  }
+  // the image's last block to finish writes its f32 outputs
+  __syncthreads();
+  if (t == 0) {
+    __threadfence();
+    last = atomicAdd(&s.done[blockIdx.y], 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int k = t; k < K; k += K6_THREADS) {
+    hole_sum[sbase + k] = (float)__ldcg(&s.sum[sbase + k]);
+    hole_cnt[sbase + k] = (float)__ldcg(&s.cnt[sbase + k]);
   }
 }
 
@@ -1111,6 +1349,10 @@ __global__ void k7_pack(const uint8_t* __restrict__ mask, uint8_t* packed,
 
 inline int cdiv(long a, long b) { return (int)((a + b - 1) / b); }
 
+// K4's tiles of an image; an image with no pixel still has one, which
+// writes its valid_root
+inline int k4_tiles(int HW) { return HW > 0 ? cdiv(HW, K4_TILE) : 1; }
+
 }  // namespace
 
 extern "C" {
@@ -1130,37 +1372,72 @@ int cc_label(const uint8_t* mask, int* labels, int N, int H, int W, int conn,
   return (int)cudaGetLastError();
 }
 
-// K4: keyed (N,HW) int32 and valid_root (N,K) uint8 from labels (N,HW).
-// Scratch: chunk (N, ceil(HW/1024)) int32, rank_at (N,HW) int32.
-int cc_compact(const int* labels, int* keyed, uint8_t* valid_root, int* chunk,
-               int* rank_at, int N, int HW, int K, cudaStream_t stream) {
-  const int nchunk = cdiv(HW, CHUNK);
-  const dim3 grid(nchunk, N);
-  k4_count<<<grid, CHUNK, 0, stream>>>(labels, HW, chunk, nchunk);
-  k4_scan<<<N, 1024, 0, stream>>>(chunk, nchunk, K, valid_root);
-  k4_rank<<<grid, CHUNK, 0, stream>>>(labels, HW, chunk, nchunk, rank_at);
-  k4_assign<<<dim3(cdiv(HW, 256), N), 256, 0, stream>>>(labels, rank_at, HW,
-                                                         K, keyed);
+// K4: keyed (N,HW) int32 and valid_root (N,K) 0/1 bytes (a bool tensor's
+// storage) from labels (N,HW) int32 (K3's). scratch:
+// cc_compact_scratch_bytes(N, HW) bytes, no init by the caller.
+size_t cc_compact_scratch_bytes(int N, int HW) {
+  const size_t tiles = (size_t)N * k4_tiles(HW);
+  return tiles * sizeof(unsigned long long) + N * sizeof(unsigned);
+}
+
+int cc_compact(const int* labels, int* keyed, uint8_t* valid_root,
+               void* scratch, int N, int HW, int K, cudaStream_t stream) {
+  if (N == 0) return 0;
+  const int ntiles = k4_tiles(HW);
+  auto* status = static_cast<unsigned long long*>(scratch);
+  auto* tickets = reinterpret_cast<unsigned*>(status + (size_t)N * ntiles);
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, cc_compact_scratch_bytes(N, HW), stream);
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte loads where every image starts on a 16-byte boundary
+  const bool vec = HW % 4 == 0 && (reinterpret_cast<uintptr_t>(labels) |
+                                   reinterpret_cast<uintptr_t>(keyed)) %
+                                          16 == 0;
+  k4_rank<<<dim3(ntiles, N), K4_THREADS, 0, stream>>>(
+      labels, HW, K, ntiles, vec, status, tickets, keyed, valid_root);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || HW == 0) return (int)err;
+  k4_assign<<<dim3(cdiv(HW, 4 * 256), N), 256, 0, stream>>>(labels, HW, K,
+                                                             vec, keyed);
   return (int)cudaGetLastError();
 }
 
-// K6: hole_sum (N,K) f64 and hole_cnt (N,K) int32, both zeroed by the
-// caller, from the fg mask, fg and bg slot maps and prob. Scratch: border
-// (N,K+1) int32 zeroed, enclosing (N,K+1) int32 filled with K.
+// K6: hole_sum and hole_cnt (N,K) f32 from the fg mask (N,H,W) uint8, the
+// fg and bg slot maps (N,H*W) int32 (K4's, on the 8-connected foreground
+// and the 4-connected background) and prob (N,H,W) f32. scratch:
+// cc_hole_route_scratch_bytes(N, K) bytes, no init by the caller.
+size_t cc_hole_route_scratch_bytes(int N, int K) {
+  return k6_scratch_bytes(N, K);
+}
+
 int cc_hole_route(const uint8_t* mask, const int* fg_keyed,
-                  const int* bg_keyed, const float* prob, int* border,
-                  int* enclosing, double* hole_sum, int* hole_cnt, int N,
-                  int H, int W, int K, cudaStream_t stream) {
-  const dim3 blk(32, 8);
-  const dim3 grid(cdiv(W, 32), cdiv(H, 8), N);
-  k6_scan<<<grid, blk, 0, stream>>>(mask, fg_keyed, bg_keyed, H, W, K, border,
-                                    enclosing);
-  const int total = N * (K + 1);
-  k6_target<<<cdiv(total, 256), 256, 0, stream>>>(border, enclosing, K,
-                                                  total);
+                  const int* bg_keyed, const float* prob, void* scratch,
+                  float* hole_sum, float* hole_cnt, int N, int H, int W,
+                  int K, cudaStream_t stream) {
+  if (N == 0 || K == 0) return 0;
+  const size_t out_bytes = (size_t)N * K * sizeof(float);
+  cudaError_t err;
+  if (H == 0 || W == 0) {   // no pixel, so no hole
+    err = cudaMemsetAsync(hole_sum, 0, out_bytes, stream);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(hole_cnt, 0, out_bytes, stream);
+    return (int)err;
+  }
+  const K6Scratch s = k6_scratch(scratch, N, K);
+  err = cudaMemsetAsync(scratch, 0, k6_scratch_bytes(N, K), stream);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 blk(K6_TX, K6_TY), grid(cdiv(W, K6_TX), cdiv(H, K6_TH), N);
+  k6_scan<<<grid, blk, 0, stream>>>(mask, fg_keyed, bg_keyed, H, W, K,
+                                    s.table);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // 4-byte mask and 16-byte slot loads where every image is aligned
   const int HW = H * W;
-  k6_accumulate<<<dim3(cdiv(HW, 256 * RUN), N), 256, 0, stream>>>(
-      mask, bg_keyed, enclosing, prob, HW, K, hole_sum, hole_cnt);
+  const bool vec = HW % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(mask) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(bg_keyed) % 16 == 0;
+  k6_accumulate<<<dim3(cdiv(HW, K6_BLOCK_PX), N), K6_THREADS, 0, stream>>>(
+      mask, bg_keyed, prob, s.table, HW, K, vec, s, hole_sum, hole_cnt);
   return (int)cudaGetLastError();
 }
 

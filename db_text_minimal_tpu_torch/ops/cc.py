@@ -70,9 +70,12 @@ def load_library() -> ctypes.CDLL:
                                             "libcc", "cuda"))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.cc_label.argtypes = [p, p, i, i, i, i, p]
-            lib.cc_compact.argtypes = [p, p, p, p, p, i, i, i, p]
-            lib.cc_hole_route.argtypes = [p, p, p, p, p, p, p, p,
-                                          i, i, i, i, p]
+            lib.cc_compact.argtypes = [p, p, p, p, i, i, i, p]
+            lib.cc_compact_scratch_bytes.argtypes = [i, i]
+            lib.cc_compact_scratch_bytes.restype = ctypes.c_size_t
+            lib.cc_hole_route.argtypes = [p] * 7 + [i] * 4 + [p]
+            lib.cc_hole_route_scratch_bytes.argtypes = [i, i]
+            lib.cc_hole_route_scratch_bytes.restype = ctypes.c_size_t
             lib.cc_rot_boxes.argtypes = [p] * 7 + [i] + [p] * 5 + [i] * 4 + [p]
             lib.cc_rot_boxes_scratch_bytes.argtypes = [i, i, i]
             lib.cc_rot_boxes_scratch_bytes.restype = ctypes.c_size_t
@@ -189,19 +192,20 @@ def compact_slots(labels: torch.Tensor, max_components: int):
     labels = labels.contiguous()
     hw = labels.shape[1]
     dev = labels.device
+    lib = load_library()
     keyed = torch.empty((n, hw), dtype=torch.int32, device=dev)
-    valid_root = torch.empty((n, max_components), dtype=torch.uint8,
+    valid_root = torch.empty((n, max_components), dtype=torch.bool,
                              device=dev)
-    chunk = torch.empty((n, -(-hw // 1024)), dtype=torch.int32, device=dev)
-    rank_at = torch.empty((n, hw), dtype=torch.int32, device=dev)
+    # tile status words and tickets, zeroed by the C entry
+    scratch = torch.empty(lib.cc_compact_scratch_bytes(n, hw),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        err = load_library().cc_compact(
-            labels.data_ptr(), keyed.data_ptr(), valid_root.data_ptr(),
-            chunk.data_ptr(), rank_at.data_ptr(), n, hw, max_components,
-            stream_of(labels))
+        err = lib.cc_compact(labels.data_ptr(), keyed.data_ptr(),
+                             valid_root.data_ptr(), scratch.data_ptr(), n,
+                             hw, max_components, stream_of(labels))
     check_launch(err, "compact_slots")
     LAUNCHES["compact_slots"] += 1
-    return keyed, valid_root.bool()
+    return keyed, valid_root
 
 
 # ------------------------------------------------------------------ K6 ----
@@ -260,19 +264,20 @@ def hole_stats(mask: torch.Tensor, fg_keyed: torch.Tensor,
     dev = mask.device
     fg_keyed, bg_keyed = fg_keyed.contiguous(), bg_keyed.contiguous()
     prob = prob.contiguous()
-    border = torch.zeros((n, k + 1), dtype=torch.int32, device=dev)
-    enclosing = torch.full((n, k + 1), k, dtype=torch.int32, device=dev)
-    hole_sum = torch.zeros((n, k), dtype=torch.float64, device=dev)
-    hole_cnt = torch.zeros((n, k), dtype=torch.int32, device=dev)
+    lib = load_library()
+    # the per-slot tables and f64 sums, zeroed by the C entry
+    scratch = torch.empty(lib.cc_hole_route_scratch_bytes(n, k),
+                          dtype=torch.uint8, device=dev)
+    hole_sum = torch.empty((n, k), dtype=torch.float32, device=dev)
+    hole_cnt = torch.empty((n, k), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = load_library().cc_hole_route(
+        err = lib.cc_hole_route(
             mask.data_ptr(), fg_keyed.data_ptr(), bg_keyed.data_ptr(),
-            prob.data_ptr(), border.data_ptr(), enclosing.data_ptr(),
-            hole_sum.data_ptr(), hole_cnt.data_ptr(), n, h, w, k,
-            stream_of(mask))
+            prob.data_ptr(), scratch.data_ptr(), hole_sum.data_ptr(),
+            hole_cnt.data_ptr(), n, h, w, k, stream_of(mask))
     check_launch(err, "hole_stats")
     LAUNCHES["hole_stats"] += 1
-    return hole_sum.float(), hole_cnt.float()
+    return hole_sum, hole_cnt
 
 
 # ------------------------------------------------------------------ K5 ----

@@ -94,6 +94,163 @@ def test_hole_stats_match_jax(scene):
     assert np.all(np.abs(hole_sum[0].numpy() - sum_ref) <= tol)
 
 
+# K4's masks: noise of ragged shapes (a row, a column, a pixel), all
+# background, all foreground, and sparse noise with more components than
+# K = 1000 under either connectivity
+K4_MASKS = {"noise_37x53": ((37, 53), 0.25), "noise_1x40": ((1, 40), 0.25),
+            "noise_50x1": ((50, 1), 0.25), "noise_1x1": ((1, 1), 0.5),
+            "sparse_160x160": ((160, 160), 0.12),
+            "zeros_37x53": ((37, 53), 0.0), "ones_37x53": ((37, 53), 1.0)}
+
+
+def _k4_mask(name):
+    shape, density = K4_MASKS[name]
+    return np.random.RandomState(3).rand(*shape) < density
+
+
+@pytest.mark.parametrize("connectivity", [8, 4])
+@pytest.mark.parametrize("k", [1, 10, 1000])
+@pytest.mark.parametrize("name", sorted(K4_MASKS))
+def test_compact_slots_match_jax(name, k, connectivity):
+    """K4 against the JAX ``_compact_slots`` on the same labels, exact:
+    overflow components and background in slot K, valid_root the first
+    min(roots, K) slots."""
+    labels = cc.connected_components_plain(_t(_k4_mask(name)), connectivity)
+    roots = int((labels.reshape(-1) == torch.arange(labels.numel())).sum())
+    if name == "sparse_160x160":
+        assert roots > 1000
+    key_ref, valid_ref = jcc._compact_slots(
+        jnp.asarray(labels[0].numpy().reshape(-1)), k)
+    keyed, valid_root = cc.compact_slots(labels, k)
+    assert keyed.dtype == torch.int32 and valid_root.dtype == torch.bool
+    np.testing.assert_array_equal(keyed[0].numpy(), np.asarray(key_ref))
+    np.testing.assert_array_equal(valid_root[0].numpy(),
+                                  np.asarray(valid_ref))
+    assert int(valid_root.sum()) == min(roots, k)
+
+
+def _ranked_in_place(labels, k, tile):
+    """The K4 kernel's scheme in plain torch: per-tile root counts, their
+    exclusive scan (what the look-back gives each tile), each root's rank
+    as the tile's prefix plus the roots before it in the tile, written
+    clamped into the slot map at the root itself over values never
+    initialised, then every pixel's slot read through its label."""
+    n, hw = labels.shape
+    flat = labels.long()
+    ntiles = max(1, -(-hw // tile))
+    is_root = torch.zeros((n, ntiles * tile), dtype=torch.long)
+    is_root[:, :hw] = flat == torch.arange(hw)
+    by_tile = is_root.view(n, ntiles, tile)
+    counts = by_tile.sum(2)
+    prefix = torch.cumsum(counts, 1) - counts
+    rank = (prefix[..., None] + torch.cumsum(by_tile, 2) - by_tile)
+    rank = rank.reshape(n, -1)[:, :hw]
+    roots = is_root[:, :hw].bool()
+    keyed = torch.full((n, hw), -7)         # what torch.empty might hold
+    keyed[roots] = rank[roots].clamp(max=k)
+    fg = flat >= 0
+    # the gather reads roots only, so no pixel reads a slot being written
+    assert bool(roots.gather(1, flat.clamp(min=0))[fg].all())
+    keyed = torch.where(fg, keyed.gather(1, flat.clamp(min=0)), k)
+    total = prefix[:, -1] + counts[:, -1]
+    return (keyed.to(torch.int32),
+            torch.arange(k)[None] < total[:, None])
+
+
+@pytest.mark.parametrize("tile", [7, 128, 4096, 16384])
+@pytest.mark.parametrize("name", sorted(K4_MASKS))
+def test_ranked_in_place_gives_the_plain_slots(name, tile):
+    """The identity the K4 kernel rests on: ranks written in place at the
+    roots and read through the labels equal ``compact_slots_plain``, bit
+    for bit, with tiles that do not divide H·W, both connectivities, K of
+    1, 10 and 1000."""
+    mask = _k4_mask(name)
+    for connectivity in (8, 4):
+        labels = cc.connected_components_plain(_t(mask), connectivity)
+        labels = labels.reshape(1, -1)
+        for k in (1, 10, 1000):
+            got = _ranked_in_place(labels, k, tile)
+            ref = cc.compact_slots_plain(labels, k)
+            assert torch.equal(got[0], ref[0])
+            assert torch.equal(got[1], ref[1])
+
+
+def _route_by_table(mask, fg_keyed, bg_keyed, prob, k):
+    """The K6 kernels' route in plain torch: the 8-neighbour min from the
+    column minima of a 1-pixel halo (the min over three columns of the
+    rows above and below, the two side columns of the pixel's own row),
+    a per-bg-slot table {border touched, K - enclosing} filled with 0 (a
+    memset), and each bg pixel's target read from it."""
+    n, h, w = mask.shape
+    padded = torch.full((n, h + 2, w + 2), k, dtype=torch.long)
+    padded[:, 1:-1, 1:-1] = fg_keyed.reshape(n, h, w)
+    side = torch.minimum(padded[:, :, :-2], padded[:, :, 2:])
+    m3 = torch.minimum(side, padded[:, :, 1:-1])
+    nb = torch.minimum(torch.minimum(m3[:, :-2], m3[:, 2:]), side[:, 1:-1])
+    key = bg_keyed.reshape(n, -1).long()
+    bg = ~mask.reshape(n, -1).bool()
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    edge = ((ys == 0) | (xs == 0) | (ys == h - 1) | (xs == w - 1))
+    edge = edge.reshape(1, -1).expand(n, -1).long()
+    border = torch.zeros((n, k + 1), dtype=torch.long)
+    border.scatter_reduce_(1, key, edge, "amax")
+    inverse = torch.zeros((n, k + 1), dtype=torch.long)
+    inverse.scatter_reduce_(1, key, torch.where(bg, k - nb.reshape(n, -1), 0),
+                            "amax")
+    target = torch.where((inverse > 0) & (border == 0), k - inverse, k)
+    per_pixel = torch.where(bg, target.gather(1, key), k)
+    hole_sum = torch.zeros((n, k + 1), dtype=torch.float64)
+    hole_sum.scatter_add_(1, per_pixel, prob.reshape(n, -1).double())
+    hole_cnt = torch.zeros((n, k + 1), dtype=torch.long)
+    hole_cnt.scatter_add_(1, per_pixel, torch.ones_like(per_pixel))
+    return hole_sum[:, :k].float(), hole_cnt[:, :k].float()
+
+
+def _hole_case(case):
+    """(mask, fg_keyed, bg_keyed, prob, K) for a K6 case: a scene, a K3
+    sweep mask at 70x97 with prob from a seed, or noise whose background
+    components overflow bg slot K (K = 40)."""
+    kind, name = case.split(":")
+    rng = np.random.RandomState(9)
+    k = K
+    if kind == "scene":
+        prob, thresh, _ = SCENES[name]()
+        prob = prob[None]
+        mask = prob > thresh
+    elif kind == "sweep":
+        mask = k3_sweep_mask(name, 70, 97)[None]
+        prob = rng.rand(1, 70, 97).astype(np.float32)
+    else:
+        prob = rng.rand(2, 48, 61).astype(np.float32)
+        mask, k = prob > 1.0 - float(name), 40
+    prob, mask = torch.from_numpy(prob), torch.from_numpy(mask)
+    keyed, _ = cc.compact_slots(cc.connected_components(mask), k)
+    bg_labels = cc.connected_components(~mask, 4)
+    if kind == "noise":
+        roots = (bg_labels.reshape(2, -1) == torch.arange(48 * 61)).sum(1)
+        assert bool((roots > k).all())        # bg slot K is shared
+    bg_keyed, _ = cc.compact_slots(bg_labels, k)
+    return mask, keyed, bg_keyed, prob, k
+
+
+@pytest.mark.parametrize("case", [f"scene:{s}" for s in sorted(SCENES)]
+                         + [f"sweep:{s}" for s in K3_SWEEP]
+                         + ["noise:0.45", "noise:0.6"])
+def test_route_by_table_gives_the_plain_holes(case):
+    """The identities the K6 kernels rest on: the halo's column minima give
+    the 8-neighbour min, the 0-filled table of K - enclosing gives the
+    enclosing slot, and routing each bg pixel through it equals
+    ``hole_stats_plain`` bit for bit (the same f64 sums in the same
+    order), on nested rings, diagonal-sealed holes and overflow of bg
+    slot K."""
+    args = _hole_case(case)
+    got = _route_by_table(*args)
+    ref = cc.hole_stats_plain(*args)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    if case in ("scene:nested_ring", "scene:diagonal_hole"):
+        assert float(ref[1].sum()) > 0
+
+
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_rotated_boxes_match_jax(scene):
     """K5 with hole-filled scores: same valid slots, corners and sides

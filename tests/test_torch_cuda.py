@@ -113,6 +113,98 @@ def test_connected_components_sweep_matches_plain_version(name, shape,
     assert cc.LAUNCHES["connected_components_4"] == 1
 
 
+def _sweep_mask(name, shape):
+    n, h, w = shape
+    return torch.from_numpy(np.stack([k3_sweep_mask(name, h, w, seed=i)
+                                      for i in range(n)]))
+
+
+@pytest.mark.parametrize("shape", [(3, 96, 384), (2, 65, 257), (1, 1, 1)])
+@pytest.mark.parametrize("k", [1, 10, 1000])
+@pytest.mark.parametrize("connectivity", [8, 4])
+@pytest.mark.parametrize("name", K3_SWEEP)
+def test_compact_slots_sweep_matches_plain_version(name, connectivity, k,
+                                                   shape, device):
+    """K4 on K3's hard masks, both connectivities: one component, none, one
+    a pixel (the 4-connected checkerboard), more components than K; tiles
+    cut by the image's end; slots and valid roots exact."""
+    labels = cc.connected_components(_sweep_mask(name, shape).to(device),
+                                     connectivity)
+    cc.reset_launches()
+    keyed, valid_root = cc.compact_slots(labels, k)
+    assert cc.LAUNCHES["compact_slots"] == 1
+    assert keyed.dtype == torch.int32 and valid_root.dtype == torch.bool
+    keyed_p, valid_p = cc.compact_slots_plain(labels, k)
+    assert torch.equal(keyed, keyed_p) and torch.equal(valid_root, valid_p)
+
+
+def _hole_inputs(name, shape, device):
+    """(mask, fg_keyed, bg_keyed, prob, K) by the kernels: a K3 sweep mask,
+    a scene (nested ring, diagonal-sealed hole) and its flip, or noise whose
+    background components overflow bg slot K."""
+    k = K
+    if name in SCENES:
+        p, thresh, _ = SCENES[name]()
+        prob = np.stack([p, p[::-1].copy()])
+        mask = torch.from_numpy(prob > thresh)
+    elif name == "overflow":
+        prob = np.random.RandomState(3).rand(*shape).astype(np.float32)
+        mask, k = torch.from_numpy(prob > 0.55), 40
+    else:
+        mask = _sweep_mask(name, shape)
+        prob = np.random.RandomState(0).rand(*shape).astype(np.float32)
+    prob, mask = torch.from_numpy(prob).to(device), mask.to(device)
+    keyed, _ = cc.compact_slots(cc.connected_components(mask), k)
+    bg_keyed, _ = cc.compact_slots(cc.connected_components(~mask, 4), k)
+    return mask, keyed, bg_keyed, prob, k
+
+
+@pytest.mark.parametrize("name,shape", [
+    (name, shape) for name in K3_SWEEP + ("overflow",)
+    for shape in ((3, 96, 384), (2, 65, 257), (1, 1, 1))]
+    + [("nested_ring", None), ("diagonal_hole", None)])
+def test_hole_stats_sweep_matches_plain_version(name, shape, device):
+    """K6 on K3's hard masks, nested rings, diagonal-sealed holes and noise
+    that overflows bg slot K: hole counts exact, hole sums (f64 in atomic
+    order, rounded to f32) within 1e-6 of their size."""
+    args = _hole_inputs(name, shape, device)
+    cc.reset_launches()
+    hole_sum, hole_cnt = cc.hole_stats(*args)
+    assert cc.LAUNCHES["hole_stats"] == 1
+    ref_sum, ref_cnt = cc.hole_stats_plain(*args)
+    assert hole_sum.dtype == hole_cnt.dtype == torch.float32
+    assert torch.equal(hole_cnt, ref_cnt)
+    torch.testing.assert_close(hole_sum, ref_sum, rtol=1e-6, atol=1e-6)
+    if name in SCENES:
+        assert float(ref_cnt.sum()) > 0
+
+
+def test_repeated_calls_give_the_first_result(device):
+    """50 back-to-back calls of K4 and of K6 on one input of the serving
+    size (noise near the percolation threshold, 8x640x640): every slot map,
+    valid root and hole count equal to the first call's, every hole sum
+    within 1e-6 of it (f64 sums in atomic order, rounded to f32). Catches
+    races in the look-back and in the ranks written in place."""
+    rng = np.random.RandomState(5)
+    prob = torch.from_numpy(rng.rand(8, 640, 640).astype(np.float32))
+    prob = prob.to(device)
+    mask = prob > 0.45
+    labels = cc.connected_components(mask)
+    bg_labels = cc.connected_components(~mask, 4)
+    first = cc.compact_slots(labels, K)
+    bg_keyed, _ = cc.compact_slots(bg_labels, K)
+    holes = cc.hole_stats(mask, first[0], bg_keyed, prob, K)
+    assert torch.equal(first[0], cc.compact_slots_plain(labels, K)[0])
+    runs = [(cc.compact_slots(labels, K),
+             cc.hole_stats(mask, first[0], bg_keyed, prob, K))
+            for _ in range(50)]
+    for (keyed, valid_root), (hole_sum, hole_cnt) in runs:
+        assert torch.equal(keyed, first[0])
+        assert torch.equal(valid_root, first[1])
+        assert torch.equal(hole_cnt, holes[1])
+        torch.testing.assert_close(hole_sum, holes[0], rtol=1e-6, atol=1e-6)
+
+
 def _assert_k5_matches_plain(args):
     """K5 on the card against its plain version on the same inputs: valid
     exact, corners and sides within 1e-3 px, scores within 1e-6."""

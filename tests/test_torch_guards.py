@@ -19,19 +19,21 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(root, name)
     yield os.path.join(_REPO, "chip_smoke.py")
+    yield os.path.join(_REPO, "compare_kernels.py")
 
 
 def test_port_imports_with_jax_blocked():
-    """Every module of the port, and chip_smoke.py, imports in a process
-    where jax, flax, optax and the JAX package cannot be imported (this
-    process already holds jax, so the check runs in a subprocess)."""
+    """Every module of the port, chip_smoke.py and compare_kernels.py
+    import in a process where jax, flax, optax and the JAX package cannot
+    be imported (this process already holds jax, so the check runs in a
+    subprocess)."""
     snippet = """
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "optax", "db_text_minimal_tpu"):
     sys.modules[name] = None
 import db_text_minimal_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for name in names + ["chip_smoke"]:
+for name in names + ["chip_smoke", "compare_kernels"]:
     importlib.import_module(name)
 print(len(names))
 """
