@@ -15,7 +15,8 @@ Phases, one output line each (or more), stopping at the first failure:
              x256, int8 at a layer-2 conv1's 8x80x80x128), and each kernel
              K3-K7 against its plain PyTorch version on the
              card at the serving path's shapes (8 prob maps of 640x640,
-             K = 1000 slots; K7's bit-pack also at width 100), K8
+             K = 1000 slots; K7's stats in its bbox_stats and poly_stats
+             forms, K7's bit-pack also at width 100), K8
              (fast_boxes) against its run on the CPU, and K1, K2 forward
              and K2 backward at the training shapes (P and T of
              4x1x640x640, the backward's gradient at the element stride of
@@ -36,8 +37,8 @@ Phases, one output line each (or more), stopping at the first failure:
              loaded from a .pth with the reference's key names. Every kernel
              of the rect path (K3-K6) must launch. Then time the batch, K3
              on the served maps' masks (both connectivities), K4 on their
-             labels, K6 and K5 on their slot maps, each held to its plain
-             version.
+             labels, K6, K5 and K7's stats (poly_stats form) on their slot
+             maps, each held to its plain version.
 4. quant   - the BN-folded and int8 serving path on the same .pth and
              batch: the handler in "folded" mode (its default; P1 must not
              launch) and in "int8" mode (dynamic scales, 17 int8 convs: P1
@@ -138,8 +139,13 @@ KERNEL_IDS = {"fused_db_step": "K1", "db_step_forward": "K2",
               "compact_slots_served": "K4", "rotated_boxes": "K5",
               "rotated_boxes_served": "K5", "hole_stats": "K6",
               "hole_stats_served": "K6", "bbox_stats": "K7",
+              "poly_stats": "K7", "poly_stats_served": "K7",
               "pack_bits": "K7", "pack_bits_w100": "K7", "fast_boxes": "K8",
               "int8_epilogue_f32": "P1", "int8_epilogue_int8": "P1"}
+
+
+# the counter a row's kernel adds to, where it is not the row's own name
+COUNTER = {"poly_stats": "bbox_stats", "pack_bits_w100": "pack_bits"}
 
 
 def check_launches(launches: dict, path: tuple, what: str) -> None:
@@ -170,18 +176,19 @@ def timed(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_kernels(fn, reps: int) -> tuple[float, dict]:
+def device_kernels(fn, reps: int) -> tuple[float, dict, float]:
     """Device time of ``fn`` from torch.profiler: the card's activity
-    (kernels, copies, fills) per call in ms, and ms per call by kernel
-    name, over ``reps`` calls after one warm-up call. A trace that holds
-    no device activity at all (the profiler now and then drops a whole
-    window) is taken again, up to three times."""
+    (kernels, copies, fills) per call in ms, ms per call by kernel name,
+    and device operations per call, over ``reps`` calls after one warm-up
+    call. A trace that holds no device activity at all (the profiler now
+    and then drops a whole window) is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     by_name: dict = {}
+    ops = 0
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -190,11 +197,12 @@ def device_kernels(fn, reps: int) -> tuple[float, dict]:
             torch.cuda.synchronize()
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
+                ops += 1
                 by_name[e.name] = (by_name.get(e.name, 0.0)
                                    + e.time_range.elapsed_us() / 1e3 / reps)
         if by_name:
             break
-    return sum(by_name.values()), by_name
+    return sum(by_name.values()), by_name, ops / reps
 
 
 def draw_rect(prob, cx, cy, w, h, deg, val):
@@ -293,7 +301,7 @@ def kernel_row(name, route, source, replaces, err, tol, kernel, plain,
         raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
     ms = timed(kernel, 20)
     plain_ms = plain if isinstance(plain, float) else timed(plain, 3)
-    dev_ms, by_name = device_kernels(kernel, 20)
+    dev_ms, by_name, _ = device_kernels(kernel, 20)
     split = {short_name(k): v for k, v in by_name.items()}
     bound_ms, bound_by = bound(bytes_moved, ops)
     log(f"kernel {name}: max_abs_err {err} (tolerance {tol}), "
@@ -551,11 +559,11 @@ def phase_k5_sweep() -> None:
 
 
 def phase_served(preds: torch.Tensor) -> list[dict]:
-    """K3-K6 rows on the served batch's maps at the handler's threshold
+    """K3-K7 rows on the served batch's maps at the handler's threshold
     0.3: K3 on the 8-connected foreground and the 4-connected background,
     as the rect and polygon paths label them, K4 on the foreground labels,
-    K6 on the slot maps of both, and K5 on the slot maps that the rect path
-    gives it (K = 1000)."""
+    K6 on the slot maps of both, K5 on the slot maps that the rect path
+    gives it and the K7 stats in the polygon path's form (K = 1000)."""
     prob = preds[..., 0].contiguous()
     mask = prob > 0.3
     px = mask.numel()
@@ -572,7 +580,8 @@ def phase_served(preds: torch.Tensor) -> list[dict]:
     rows.append(k4_row("compact_slots_served", labels))
     keyed, _ = cc.compact_slots(labels, K)
     bg_keyed, _ = cc.compact_slots(cc.connected_components(~mask, 4), K)
-    rows.append(k6_row("hole_stats_served", mask, keyed, bg_keyed, prob)[0])
+    row, hole, _ = k6_row("hole_stats_served", mask, keyed, bg_keyed, prob)
+    rows.append(row)
     args = (prob,) + k5_inputs(prob, mask) + (K,)
     out_p = cc.rotated_boxes_plain(*args)
     rows.append(kernel_row(
@@ -580,7 +589,9 @@ def phase_served(preds: torch.Tensor) -> list[dict]:
         check_k5(cc.rotated_boxes(*args), out_p, "rotated_boxes_served"),
         1e-3, lambda: cc.rotated_boxes(*args),
         lambda: cc.rotated_boxes_plain(*args), *k5_work(args[1], SIZE)))
-    log(f"served k3-k6 ok: {int(mask.sum())} of {px} pixels set over "
+    rows.append(poly_stats_row("poly_stats_served", prob, keyed, args[2],
+                               hole))
+    log(f"served k3-k7 ok: {int(mask.sum())} of {px} pixels set over "
         f"{N} maps, {int(out_p[3].sum())} valid slots")
     return rows
 
@@ -596,11 +607,13 @@ def host_ms(fn, reps: int) -> float:
 
 
 def phase_poly_kernels() -> list[dict]:
-    """K7's two kernels at the serving shapes (bbox statistics over the K4
-    slots, the bit-pack of the bitmap) and the bit-pack at width 100 (rows
-    padded to 13 bytes) against their plain versions on the card: counts,
-    bboxes and packed bytes exact, prob sums (f64) within 1e-9 of their
-    size. K8's fast_boxes (K3, K4 and the bbox statistics with its filter)
+    """K7's kernels at the serving shapes (the stats kernel over the K4
+    slots in its bbox_stats form and in its poly_stats form, which folds in
+    the hole-filled scores and valid flags, and the bit-pack of the bitmap)
+    and the bit-pack at width 100 (rows padded to 13 bytes) against their
+    plain versions on the card: counts, bboxes, valid flags and packed
+    bytes exact, prob sums (f64) within 1e-9 of their size, scores within
+    1e-6. K8's fast_boxes (K3, K4 and the bbox statistics with its filter)
     against the same call on the CPU, where the wrappers run their plain
     versions: boxes and keep exact, scores within 1e-6."""
     dev = torch.device("cuda")
@@ -608,7 +621,7 @@ def phase_poly_kernels() -> list[dict]:
         np.stack([kernel_scene(i) for i in range(N)])).to(dev)
     mask = prob > 0.3
     px = N * SIZE * SIZE
-    keyed, _ = cc.compact_slots(cc.connected_components(mask), K)
+    keyed, valid_root = cc.compact_slots(cc.connected_components(mask), K)
     rows = []
 
     cnt, psum, bbox = cc.bbox_stats(keyed, prob, K)
@@ -622,6 +635,9 @@ def phase_poly_kernels() -> list[dict]:
         lambda: cc.bbox_stats(keyed, prob, K),
         lambda: cc.bbox_stats_plain(keyed, prob, K),
         px * (4 + 4) + N * K * (4 + 8 + 16), px * 8))
+    bg_keyed, _ = cc.compact_slots(cc.connected_components(~mask, 4), K)
+    rows.append(poly_stats_row("poly_stats", prob, keyed, valid_root,
+                               cc.hole_stats(mask, keyed, bg_keyed, prob, K)))
 
     for name, m in (("pack_bits", mask),
                     ("pack_bits_w100", mask[:, :100, :100].contiguous())):
@@ -657,13 +673,32 @@ def phase_poly_kernels() -> list[dict]:
     return rows
 
 
+def poly_stats_row(name, prob, keyed, valid_root, hole) -> dict:
+    """The K7 stats kernel with the polygon path's epilogue against its
+    plain version: bboxes and valid exact, scores within 1e-6 (f64 sums in
+    atomic order may round to another f32). Bytes: the slot map and prob
+    read, 8 B a pixel, valid_root and the hole sums and counts read (9 B a
+    slot), bboxes, scores and valid written (21 B a slot)."""
+    args = (keyed, valid_root, prob) + tuple(hole) + (K,)
+    out, ref = cc.poly_stats(*args), cc.poly_stats_plain(*args)
+    if not (torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])):
+        raise AssertionError(f"{name}: bboxes or valid slots differ")
+    px, slots = prob.numel(), prob.shape[0] * K
+    return kernel_row(
+        name, "cuda", SRC, f"{JAX_CC}:448",
+        (out[1] - ref[1]).abs().max().item(), 1e-6,
+        lambda: cc.poly_stats(*args), lambda: cc.poly_stats_plain(*args),
+        px * 8 + slots * (4 + 4 + 1) + slots * (16 + 4 + 1), px * 8)
+
+
 def phase_drivers() -> None:
     """The two batched drivers that compose the kernels, K9 device_boxes
     (rect mode) and K7 device_poly_stats (polygon mode), at the serving
     shapes on the kernel scenes: time per call by events and on the card,
     the same call on the CPU (the plain versions), and the bound from the
     bytes each must move (read the f32 map once, write its records and, for
-    K7, the packed bitmap)."""
+    K7, the packed bitmap), with the device operations (kernels, memsets,
+    copies) a call of each makes."""
     prob = torch.from_numpy(np.stack([kernel_scene(i) for i in range(N)]))
     px = N * SIZE * SIZE
     on_card = prob.to(torch.device("cuda"))
@@ -672,12 +707,13 @@ def phase_drivers() -> None:
             ("device_poly_stats", cc.device_poly_stats,
              px // 8 + N * K * (16 + 4 + 1))):
         ms = timed(lambda: fn(on_card), 20)
-        dev_ms, _ = device_kernels(lambda: fn(on_card), 20)
+        dev_ms, _, ops = device_kernels(lambda: fn(on_card), 20)
         cpu_ms = host_ms(lambda: fn(prob), 2)
         bound_ms, bound_by = bound(px * 4 + out_bytes, 0)
         log(f"driver {name} at {N}x{SIZE}x{SIZE}: {ms:.4f} ms, on the card "
-            f"{dev_ms:.4f} ms, on the CPU (plain versions) {cpu_ms:.1f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"{dev_ms:.4f} ms in {ops:g} device operations a call, on the "
+            f"CPU (plain versions) {cpu_ms:.1f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
 
 
 def phase_db_step_kernels() -> list[dict]:
@@ -966,7 +1002,7 @@ def phase_quant(pth: str, flax_forward_ms: float) -> dict:
             fwd_ms.append((time.perf_counter() - t0) * 1e3)
         q25, med, q75 = (float(q) for q in np.percentile(fwd_ms,
                                                          [25, 50, 75]))
-        busy_ms, by_name = device_kernels(fn, 3)
+        busy_ms, by_name, _ = device_kernels(fn, 3)
         p1_ms = sum(v for k, v in by_name.items() if "epilogue<" in k)
         p1_bound, _ = bound(p1_bytes(fn), 0)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -1266,7 +1302,7 @@ def phase_train(workdir: str) -> dict:
     # and the kernels that take it
     step = T.build_train_step(cfg)
     device_batch = T.to_device(batch, torch.device("cuda"))
-    busy_ms, by_name = device_kernels(
+    busy_ms, by_name, _ = device_kernels(
         lambda: step(state, device_batch, LR), 3)
     k2_ms = sum(v for k, v in by_name.items() if "_db_step_" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -1408,13 +1444,16 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    for row in rows:
-        row["launches"] = launches[row["name"].removesuffix("_served")]
-        row["launches_in"] = f"serve, box mode: one batch of {N}"
-    for row in poly_rows:
-        if row["name"] != "fast_boxes":
-            row["launches"] = poly_launches[row["name"].replace("_w100", "")]
+    for row in rows + poly_rows:
+        kernel = row["name"].removesuffix("_served")
+        if kernel == "fast_boxes":
+            continue
+        if KERNEL_IDS[kernel] == "K7":
+            row["launches"] = poly_launches[COUNTER.get(kernel, kernel)]
             row["launches_in"] = f"polygon mode: one batch of {N} at 640x640"
+        else:
+            row["launches"] = launches[kernel]
+            row["launches_in"] = f"serve, box mode: one batch of {N}"
     for row in db_rows:
         row["launches"] = train_launches[row["name"]]
         row["launches_in"] = f"train: {TRAIN_STEPS} steps"

@@ -12,8 +12,9 @@
 //   K5 cc_rot_boxes  <- component_rotated_boxes + _rect_corners (cc.py:181-320)
 //   K6 cc_hole_route <- _hole_stats (cc.py:383-444), after K3/K4 on the
 //                       4-connected background
-//   K7 cc_bbox_stats, cc_pack_bits <- _device_poly_stats_single
-//                       (cc.py:447-492), with K3, K4 and K6 around them
+//   K7 cc_poly_stats, cc_pack_bits <- _device_poly_stats_single
+//                       (cc.py:447-492), with K3, K4 and K6 around them;
+//                       cc_bbox_stats, the same stats without the scores
 //   K8 cc_bbox_stats <- component_boxes (cc.py:147-178), under fast_boxes
 //                       (cc.py:506-521)
 //
@@ -1259,80 +1260,280 @@ k6_accumulate(const uint8_t* __restrict__ mask,
 // The device half of the polygon postprocess (_device_poly_stats_single,
 // cc.py:447-492) and the stats of the axis-aligned fast boxes
 // (component_boxes, cc.py:147-178): per slot the pixel count, the prob sum
-// and the integer bbox, and the MSB-first bit-pack of the binary map that
-// the host traces contours on. Design: k7_stats reads the slot map and prob
-// once, 8 B a pixel, which bounds it; the TPU version's six scatters into
-// K + 1 slots become one pass in which each thread keeps a run of RUN
-// pixels' count, sum and extremes in registers while the slot stays the
-// same, and a warp whose lanes share one slot reduces by shuffles before a
-// single lane does the atomics, as in K5. Coordinates are ints, so their
-// minima and maxima are plain integer atomics, and the sum is f64 as in K5
-// and K6. k7_pack writes one byte from eight mask bytes per thread, bound by
-// reading the mask; a row is padded with zero bits to a whole byte.
+// and the integer bbox, with the polygon path's hole-filled score and valid
+// flag folded in, and the MSB-first bit-pack of the binary map that the
+// host traces contours on.
+//
+// k7_stats reads the slot map and prob once, 8 B a pixel, which bounds it
+// (0.0079 ms at 8x640x640 at 3.35 TB/s). The design before this one gave
+// each thread a run of 16 pixels (a warp's lanes 64 B apart on every
+// load), loaded prob only after the slot, paid a % and a / by W a pixel,
+// flushed every lane of a warp whose lanes differed, and needed a kernel
+// that filled the outputs with [W, H, -1, -1] before the pass. What this
+// design does instead:
+//
+// - K7_GROUPS groups of 4 neighbouring pixels a thread, one 16-byte load of
+//   slots and one of prob each where every image is 16-byte aligned (lane i
+//   reads the i-th 16-byte chunk of its warp's span), every load made
+//   before any value is used; a scalar path serves the tail and unaligned inputs. One
+//   division a group, then x steps and wraps to the next row.
+// - A thread keeps its current run's count, f64 sum and extremes in
+//   registers; the extremes are kept as maxima of W - x, H - y, x + 1 and
+//   y + 1, so 0 means "no pixel", a lane without a run adds nothing to a
+//   reduction, and one memset zeroes every accumulator (no fill kernel).
+// - The slot that every lane with a run holds is reduced across the warp by
+//   shuffles, and the slot that every warp of the block shares in shared
+//   memory, so a large component costs one set of atomics a block. Where a
+//   warp's lanes end on different slots, each slot's lanes reduce to one
+//   flush (__match_any_sync): on scenes of many small components the
+//   flushes of single lanes, six atomics each on a few hot lines, are what
+//   the pass costs beyond its bytes.
+// - k7_epilogue, a thread a slot, decodes the extremes (an empty slot gives
+//   [W, H, -1, -1] by itself) and writes the outputs: count, sum and bbox
+//   for bbox_stats; for poly_stats the bbox, the score
+//   (f32(sum) + hole_sum) / max(f32(count) + hole_cnt, 1) (0 where the
+//   denominator is 0) with round-to-nearest adds and division, as the
+//   plain version rounds them, and valid = valid_root && count > 0. Writing
+//   them from each image's last block (a fence and a counter in every
+//   block) was slower on the H100: 0.0151 against 0.0134 ms on 8x640x640
+//   kernel scenes, 0.0166 against 0.0139 in the poly_stats form.
+//
+// k7_pack_words: where W % 8 == 0 every row starts on a packed byte, so the
+// batch is one stream of bytes: a thread loads 16 mask bytes with one
+// 16-byte load, turns each into 0 or 1 (__vsetne4), and gathers each 8 of
+// them into a byte with one 64-bit multiply; one 2-byte store.
+// k7_pack_rows, for other widths: one packed byte a thread from 8 byte
+// loads; a row is padded with zero bits to a whole byte. Both are bound by
+// reading the mask.
 
-// Empty slots keep the TPU version's fill: count 0, sum 0, bbox [W, H, -1, -1].
-__global__ void k7_init(int NK, int W, int H, int* cnt, double* psum,
-                        int* bbox) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= NK) return;
-  cnt[i] = 0;
-  psum[i] = 0.0;
-  bbox[(size_t)i * 4] = W;
-  bbox[(size_t)i * 4 + 1] = H;
-  bbox[(size_t)i * 4 + 2] = -1;
-  bbox[(size_t)i * 4 + 3] = -1;
+constexpr int K7_THREADS = 256, K7_WARPS = K7_THREADS / 32, K7_GROUPS = 4;
+constexpr int K7_BLOCK_PX = 4 * K7_GROUPS * K7_THREADS;
+
+// The per-slot accumulators of k7_stats, one buffer zeroed by one memset.
+struct K7Scratch {
+  int4* ext;        // (N, K) maxima of W - x, H - y, x + 1, y + 1
+  double* psum;     // (N, K)
+  int* cnt;         // (N, K)
+};
+
+size_t k7_scratch_bytes(int N, int K) {
+  return (size_t)N * K * (sizeof(int4) + sizeof(double) + sizeof(int));
 }
 
-__device__ __forceinline__ void flush_bbox(size_t at, int c, double ps, int x0,
-                                           int y0, int x1, int y1, int* cnt,
-                                           double* psum, int* bbox) {
-  atomicAdd(&cnt[at], c);
-  atomicAdd(&psum[at], ps);
-  int* b = bbox + at * 4;
-  atomicMin(&b[0], x0);
-  atomicMin(&b[1], y0);
-  atomicMax(&b[2], x1);
-  atomicMax(&b[3], y1);
+K7Scratch k7_scratch(void* base, int N, int K) {
+  const size_t NK = (size_t)N * K;
+  K7Scratch s;
+  s.ext = static_cast<int4*>(base);
+  s.psum = reinterpret_cast<double*>(s.ext + NK);
+  s.cnt = reinterpret_cast<int*>(s.psum + NK);
+  return s;
 }
 
-__global__ void k7_stats(const int* __restrict__ keyed,
-                         const float* __restrict__ prob, int HW, int W, int K,
-                         int* cnt, double* psum, int* bbox) {
+// The outputs: cnt, psum and bbox for bbox_stats (POLY false); bbox,
+// scores and valid from valid_root, hole_sum and hole_cnt for poly_stats.
+struct K7Out {
+  int* cnt;
+  double* psum;
+  int4* bbox;
+  const uint8_t* valid_root;
+  const float *hole_sum, *hole_cnt;
+  float* scores;
+  uint8_t* valid;
+};
+
+// One slot's count, sum and encoded extremes.
+struct K7Acc {
+  int c;
+  double ps;
+  int4 e;
+};
+
+__device__ __forceinline__ void k7_flush(const K7Scratch& s, size_t at,
+                                         const K7Acc& a) {
+  atomicAdd(&s.cnt[at], a.c);
+  atomicAdd(&s.psum[at], a.ps);
+  int* e = &s.ext[at].x;
+  atomicMax(e, a.e.x);
+  atomicMax(e + 1, a.e.y);
+  atomicMax(e + 2, a.e.z);
+  atomicMax(e + 3, a.e.w);
+}
+
+// The sum of the counts and sums and the max of the extremes over the
+// lanes of `peers`, every one of which calls it with the same mask.
+__device__ __forceinline__ K7Acc k7_reduce(unsigned peers, K7Acc a) {
+  a.c = __reduce_add_sync(peers, a.c);
+  if (peers == FULL) {
+    a.ps = warp_sum(a.ps);
+  } else {
+    double ps = 0.0;
+    for (unsigned m = peers; m; m &= m - 1)
+      ps += __shfl_sync(peers, a.ps, __ffs(m) - 1);
+    a.ps = ps;
+  }
+  a.e = make_int4(__reduce_max_sync(peers, a.e.x),
+                  __reduce_max_sync(peers, a.e.y),
+                  __reduce_max_sync(peers, a.e.z),
+                  __reduce_max_sync(peers, a.e.w));
+  return a;
+}
+
+__global__ void __launch_bounds__(K7_THREADS)
+k7_stats(const int* __restrict__ keyed, const float* __restrict__ prob,
+         int H, int W, int K, bool vec, K7Scratch s) {
+  __shared__ int wslot[K7_WARPS];
+  __shared__ K7Acc wacc[K7_WARPS];
+  const int HW = H * W;
   const size_t base = (size_t)blockIdx.y * HW;
   const size_t sbase = (size_t)blockIdx.y * K;
-  const int p0 = (blockIdx.x * blockDim.x + threadIdx.x) * RUN;
-  int cur = -1, c = 0, x0 = 0, y0 = 0, x1 = -1, y1 = -1;
-  double ps = 0.0;
-  for (int j = 0; j < RUN; ++j) {
-    const int p = p0 + j;
-    if (p >= HW) break;
-    const int s = keyed[base + p];
-    if (s >= K) continue;
-    const int x = p % W, y = p / W;
-    if (s != cur) {
-      if (cur >= 0) flush_bbox(sbase + cur, c, ps, x0, y0, x1, y1, cnt, psum,
-                               bbox);
-      cur = s; c = 0; ps = 0.0; x0 = x1 = x; y0 = y1 = y;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  // every pixel's slot and prob, every load made before any value is used;
+  // a pixel past the image reads as slot K
+  int key[4 * K7_GROUPS];
+  float pr[4 * K7_GROUPS];
+#pragma unroll
+  for (int g = 0; g < K7_GROUPS; ++g) {
+    const int p0 = blockIdx.x * K7_BLOCK_PX + (g * K7_THREADS + t) * 4;
+    if (vec && p0 + 3 < HW) {
+      const int4 k4 = __ldg(reinterpret_cast<const int4*>(keyed + base + p0));
+      const float4 f4 =
+          __ldg(reinterpret_cast<const float4*>(prob + base + p0));
+      key[4 * g] = k4.x; key[4 * g + 1] = k4.y;
+      key[4 * g + 2] = k4.z; key[4 * g + 3] = k4.w;
+      pr[4 * g] = f4.x; pr[4 * g + 1] = f4.y;
+      pr[4 * g + 2] = f4.z; pr[4 * g + 3] = f4.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = p0 + j < HW;
+        key[4 * g + j] = in ? keyed[base + p0 + j] : K;
+        pr[4 * g + j] = in ? prob[base + p0 + j] : 0.f;
+      }
     }
-    c += 1;
-    ps += (double)prob[base + p];
-    x0 = min(x0, x); x1 = max(x1, x);
-    y0 = min(y0, y); y1 = max(y1, y);
   }
-  if (warp_uniform(cur)) {
-    c = warp_sum(c); ps = warp_sum(ps);
-    x0 = warp_min_i(x0); y0 = warp_min_i(y0);
-    x1 = warp_max_i(x1); y1 = warp_max_i(y1);
-    if ((threadIdx.x & 31) != 0) cur = -1;
+  int cur = -1;
+  K7Acc a = {0, 0.0, make_int4(0, 0, 0, 0)};
+#pragma unroll
+  for (int g = 0; g < K7_GROUPS; ++g) {
+    const int p0 = blockIdx.x * K7_BLOCK_PX + (g * K7_THREADS + t) * 4;
+    if (p0 >= HW) continue;
+    int y = p0 / W, x = p0 - y * W;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int slot = key[4 * g + j];
+      if ((unsigned)slot < (unsigned)K) {
+        if (slot != cur) {
+          if (cur >= 0) k7_flush(s, sbase + cur, a);
+          cur = slot;
+          a = {0, 0.0, make_int4(0, 0, 0, 0)};
+        }
+        a.c += 1;
+        a.ps += (double)pr[4 * g + j];
+        a.e = make_int4(max(a.e.x, W - x), max(a.e.y, H - y),
+                        max(a.e.z, x + 1), max(a.e.w, y + 1));
+      }
+      if (++x == W) {
+        x = 0;
+        ++y;
+      }
+    }
   }
-  if (cur >= 0)
-    flush_bbox(sbase + cur, c, ps, x0, y0, x1, y1, cnt, psum, bbox);
+  // the warp's common slot into shared memory; where the lanes end on
+  // different slots, one flush for each slot's lanes
+  const int common = k6_common(cur);
+  const unsigned peers = __match_any_sync(FULL, cur);
+  if (common >= 0) {
+    a = k7_reduce(FULL, a);
+  } else if (cur >= 0) {
+    a = k7_reduce(peers, a);
+    if (lane == __ffs(peers) - 1) k7_flush(s, sbase + cur, a);
+  }
+  if (lane == 0) {
+    wslot[warp] = common;
+    wacc[warp] = a;
+  }
+  __syncthreads();
+  // the block's common slot, one set of atomics; or each warp's own
+  if (warp == 0) {
+    const int slot = lane < K7_WARPS ? wslot[lane] : -1;
+    K7Acc b = {0, 0.0, make_int4(0, 0, 0, 0)};
+    if (slot >= 0) b = wacc[lane];
+    const int shared_slot = k6_common(slot);
+    if (shared_slot >= 0) {
+      b = k7_reduce(FULL, b);
+      if (lane == 0) k7_flush(s, sbase + shared_slot, b);
+    } else if (slot >= 0) {
+      k7_flush(s, sbase + slot, b);
+    }
+  }
 }
 
-// One packed byte per thread: pixels 8b..8b+7 of a row, the first in the
-// most significant bit (np.unpackbits' order), pixels past W as 0.
-__global__ void k7_pack(const uint8_t* __restrict__ mask, uint8_t* packed,
-                        int W, int W8, long total) {
+// One thread a slot: decode the extremes (an empty slot gives [W, H, -1,
+// -1] by itself) and write the outputs of either form.
+template <bool POLY>
+__global__ void k7_epilogue(int NK, int H, int W, K7Scratch s, K7Out out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= NK) return;
+  const int4 e = s.ext[i];
+  const int n = s.cnt[i];
+  const double sum = s.psum[i];
+  out.bbox[i] = make_int4(W - e.x, H - e.y, e.z - 1, e.w - 1);
+  if (POLY) {
+    const float denom = __fadd_rn(__int2float_rn(n), out.hole_cnt[i]);
+    const float num = __fadd_rn(__double2float_rn(sum), out.hole_sum[i]);
+    out.scores[i] = denom > 0.f ? __fdiv_rn(num, fmaxf(denom, 1.f)) : 0.f;
+    out.valid[i] = out.valid_root[i] && n > 0;
+  } else {
+    out.cnt[i] = n;
+    out.psum[i] = sum;
+  }
+}
+
+// Eight 0/1 bytes (lo holds the first four) to one byte, the first in the
+// most significant bit: byte j of v is bit 8j, and the product's top byte
+// collects bit 8j + 9k at 63 - j where j + k = 7, with no carries into it.
+__device__ __forceinline__ unsigned k7_gather8(unsigned lo, unsigned hi) {
+  const unsigned long long v = lo | (unsigned long long)hi << 32;
+  return (unsigned)((v * 0x8040201008040201ull) >> 56);
+}
+
+// W % 8 == 0: mask bytes 16i..16i+15 of the batch -> packed bytes 2i, 2i+1
+// (one byte for the last thread where total % 16 == 8).
+__global__ void k7_pack_words(const uint8_t* __restrict__ mask,
+                              uint8_t* packed, long total, bool vec) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long b0 = i * 16;
+  if (b0 >= total) return;
+  const bool whole = b0 + 16 <= total;
+  unsigned w[4];
+  if (vec && whole) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(mask + b0));
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w[k] = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long b = b0 + 4 * k + j;
+        w[k] |= (b < total ? (unsigned)mask[b] : 0u) << (8 * j);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) w[k] = __vsetne4(w[k], 0u);
+  const unsigned lo = k7_gather8(w[0], w[1]);
+  if (whole)
+    *reinterpret_cast<uint16_t*>(packed + 2 * i) =
+        (uint16_t)(lo | k7_gather8(w[2], w[3]) << 8);
+  else
+    packed[2 * i] = (uint8_t)lo;
+}
+
+// Other widths: one packed byte a thread, pixels 8b..8b+7 of a row, pixels
+// past W as 0.
+__global__ void k7_pack_rows(const uint8_t* __restrict__ mask,
+                             uint8_t* packed, int W, int W8, long total) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const long row = i / W8;
@@ -1352,6 +1553,32 @@ inline int cdiv(long a, long b) { return (int)((a + b - 1) / b); }
 // K4's tiles of an image; an image with no pixel still has one, which
 // writes its valid_root
 inline int k4_tiles(int HW) { return HW > 0 ? cdiv(HW, K4_TILE) : 1; }
+
+// K7 stats in either form: a memset of the accumulators and two kernels.
+template <bool POLY>
+int k7_run(const int* keyed, const float* prob, void* scratch,
+           const K7Out& out, int N, int H, int W, int K,
+           cudaStream_t stream) {
+  if (N == 0 || K == 0) return 0;
+  cudaError_t err =
+      cudaMemsetAsync(scratch, 0, k7_scratch_bytes(N, K), stream);
+  if (err != cudaSuccess) return (int)err;
+  const int HW = H * W;
+  const K7Scratch s = k7_scratch(scratch, N, K);
+  if (HW > 0) {
+    // 16-byte loads where every image starts on a 16-byte boundary
+    const bool vec = HW % 4 == 0 && (reinterpret_cast<uintptr_t>(keyed) |
+                                     reinterpret_cast<uintptr_t>(prob)) %
+                                            16 == 0;
+    k7_stats<<<dim3(cdiv(HW, K7_BLOCK_PX), N), K7_THREADS, 0, stream>>>(
+        keyed, prob, H, W, K, vec, s);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int NK = N * K;
+  k7_epilogue<POLY><<<cdiv(NK, 256), 256, 0, stream>>>(NK, H, W, s, out);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -1493,24 +1720,61 @@ int cc_rot_boxes(const float* prob, const int* keyed,
   return (int)cudaGetLastError();
 }
 
-// K7/K8 stats: cnt (N,K) int32, psum (N,K) f64 and bbox (N,K,4) int32
-// [xmin, ymin, xmax, ymax] per slot of keyed (N,HW) over prob (N,HW); all
-// three are filled here (no init by the caller).
-int cc_bbox_stats(const int* keyed, const float* prob, int* cnt, double* psum,
-                  int* bbox, int N, int H, int W, int K, cudaStream_t stream) {
-  const int HW = H * W, NK = N * K;
-  k7_init<<<cdiv(NK, 256), 256, 0, stream>>>(NK, W, H, cnt, psum, bbox);
-  k7_stats<<<dim3(cdiv(HW, 256 * RUN), N), 256, 0, stream>>>(
-      keyed, prob, HW, W, K, cnt, psum, bbox);
-  return (int)cudaGetLastError();
+// K7/K8 stats (bbox_stats): cnt (N,K) int32, psum (N,K) f64 and bbox (N,K,4)
+// int32 [xmin, ymin, xmax, ymax] per slot of keyed (N,HW) over prob
+// (N,HW); an empty slot gets 0, 0 and [W, H, -1, -1]. scratch:
+// cc_bbox_stats_scratch_bytes(N, K) bytes, no init by the caller (also for
+// cc_poly_stats).
+size_t cc_bbox_stats_scratch_bytes(int N, int K) {
+  return k7_scratch_bytes(N, K);
 }
 
-// K7 bit-pack: packed (N,H,ceil(W/8)) uint8 from mask (N,H,W) uint8.
+int cc_bbox_stats(const int* keyed, const float* prob, void* scratch,
+                  int* cnt, double* psum, int* bbox, int N, int H, int W,
+                  int K, cudaStream_t stream) {
+  K7Out out = {};
+  out.cnt = cnt;
+  out.psum = psum;
+  out.bbox = reinterpret_cast<int4*>(bbox);
+  return k7_run<false>(keyed, prob, scratch, out, N, H, W, K, stream);
+}
+
+// K7 stats with the polygon path's epilogue (poly_stats): bboxes (N,K,4)
+// int32 as above, scores (N,K) f32 and valid (N,K) 0/1 bytes (a bool
+// tensor's storage) from keyed and prob as above, valid_root (N,K) uint8
+// (K4's) and hole_sum/hole_cnt (N,K) f32 (K6's).
+int cc_poly_stats(const int* keyed, const float* prob,
+                  const uint8_t* valid_root, const float* hole_sum,
+                  const float* hole_cnt, void* scratch, int* bboxes,
+                  float* scores, uint8_t* valid, int N, int H, int W, int K,
+                  cudaStream_t stream) {
+  K7Out out = {};
+  out.bbox = reinterpret_cast<int4*>(bboxes);
+  out.valid_root = valid_root;
+  out.hole_sum = hole_sum;
+  out.hole_cnt = hole_cnt;
+  out.scores = scores;
+  out.valid = valid;
+  return k7_run<true>(keyed, prob, scratch, out, N, H, W, K, stream);
+}
+
+// K7 bit-pack: packed (N,H,ceil(W/8)) uint8 from mask (N,H,W) uint8 (any
+// nonzero byte is 1).
 int cc_pack_bits(const uint8_t* mask, uint8_t* packed, int N, int H, int W,
                  cudaStream_t stream) {
-  const int W8 = (W + 7) / 8;
-  const long total = (long)N * H * W8;
-  k7_pack<<<cdiv(total, 256), 256, 0, stream>>>(mask, packed, W, W8, total);
+  if (W % 8 == 0) {
+    const long total = (long)N * H * W;
+    if (total == 0) return 0;
+    const bool vec = reinterpret_cast<uintptr_t>(mask) % 16 == 0;
+    k7_pack_words<<<cdiv(total, 16 * 256), 256, 0, stream>>>(mask, packed,
+                                                             total, vec);
+  } else {
+    const int W8 = (W + 7) / 8;
+    const long total = (long)N * H * W8;
+    if (total == 0) return 0;
+    k7_pack_rows<<<cdiv(total, 256), 256, 0, stream>>>(mask, packed, W, W8,
+                                                       total);
+  }
   return (int)cudaGetLastError();
 }
 

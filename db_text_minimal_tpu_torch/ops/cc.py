@@ -14,8 +14,10 @@ in CUDA for Hopper (``csrc/cc.cu``) carry it:
   holes that each foreground component encloses, routed over the
   4-connected background's K3 labels and K4 slots.
 - K7 and K8 ``bbox_stats`` (cc.py:147-178 and :463-473): per-slot pixel
-  count, prob sum and integer bbox; K7 ``pack_bits`` (cc.py:482-491): the
-  binary map bit-packed MSB-first, rows padded to whole bytes.
+  count, prob sum and integer bbox; ``poly_stats``, the same kernel with
+  the polygon path's score and valid epilogue (cc.py:476-480); K7
+  ``pack_bits`` (cc.py:482-491): the binary map bit-packed MSB-first, rows
+  padded to whole bytes.
 
 ``device_boxes`` (cc.py:323-380) composes them over a batch for rect mode,
 so only (N, K) records leave the device; ``device_poly_stats``
@@ -79,10 +81,14 @@ def load_library() -> ctypes.CDLL:
             lib.cc_rot_boxes.argtypes = [p] * 7 + [i] + [p] * 5 + [i] * 4 + [p]
             lib.cc_rot_boxes_scratch_bytes.argtypes = [i, i, i]
             lib.cc_rot_boxes_scratch_bytes.restype = ctypes.c_size_t
-            lib.cc_bbox_stats.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            lib.cc_bbox_stats.argtypes = [p] * 6 + [i] * 4 + [p]
+            lib.cc_bbox_stats_scratch_bytes.argtypes = [i, i]
+            lib.cc_bbox_stats_scratch_bytes.restype = ctypes.c_size_t
+            lib.cc_poly_stats.argtypes = [p] * 9 + [i] * 4 + [p]
             lib.cc_pack_bits.argtypes = [p, p, i, i, i, p]
             for fn in (lib.cc_label, lib.cc_compact, lib.cc_hole_route,
-                       lib.cc_rot_boxes, lib.cc_bbox_stats, lib.cc_pack_bits):
+                       lib.cc_rot_boxes, lib.cc_bbox_stats,
+                       lib.cc_poly_stats, lib.cc_pack_bits):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -466,31 +472,90 @@ def bbox_stats_plain(keyed: torch.Tensor, prob: torch.Tensor,
     return count.to(torch.int32), psum, bbox.to(torch.int32)
 
 
+def _stats_inputs(keyed: torch.Tensor, prob: torch.Tensor):
+    n, h, w = prob.shape
+    keyed = keyed.reshape(n, h * w)
+    if prob.dtype != torch.float32 or keyed.dtype != torch.int32:
+        raise TypeError("prob must be float32 and keyed int32")
+    return keyed, prob
+
+
 def bbox_stats(keyed: torch.Tensor, prob: torch.Tensor,
                max_components: int):
     """K7/K8 stats: per slot of ``keyed`` (N, H·W) int32 over ``prob``
     (N, H, W) f32, the pixel count (N, K) int32, the prob sum (N, K) f64 and
     the bbox (N, K, 4) int32 as [xmin, ymin, xmax, ymax]. An empty slot
     keeps count 0, sum 0 and bbox [W, H, -1, -1], the JAX fill values."""
-    n, h, w = prob.shape
+    keyed, prob = _stats_inputs(keyed, prob)
     k = max_components
-    keyed = keyed.reshape(n, h * w)
-    if prob.dtype != torch.float32 or keyed.dtype != torch.int32:
-        raise TypeError("prob must be float32 and keyed int32")
     if not on_cuda(keyed, prob):
         return bbox_stats_plain(keyed, prob, k)
+    n, h, w = prob.shape
     dev = prob.device
     keyed, prob = keyed.contiguous(), prob.contiguous()
+    lib = load_library()
+    # the per-slot accumulators, zeroed by the C entry
+    scratch = torch.empty(lib.cc_bbox_stats_scratch_bytes(n, k),
+                          dtype=torch.uint8, device=dev)
     cnt = torch.empty((n, k), dtype=torch.int32, device=dev)
     psum = torch.empty((n, k), dtype=torch.float64, device=dev)
     bbox = torch.empty((n, k, 4), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = load_library().cc_bbox_stats(
-            keyed.data_ptr(), prob.data_ptr(), cnt.data_ptr(),
-            psum.data_ptr(), bbox.data_ptr(), n, h, w, k, stream_of(prob))
+        err = lib.cc_bbox_stats(
+            keyed.data_ptr(), prob.data_ptr(), scratch.data_ptr(),
+            cnt.data_ptr(), psum.data_ptr(), bbox.data_ptr(), n, h, w, k,
+            stream_of(prob))
     check_launch(err, "bbox_stats")
     LAUNCHES["bbox_stats"] += 1
     return cnt, psum, bbox
+
+
+def poly_stats_plain(keyed, valid_root, prob, hole_sum, hole_cnt,
+                     max_components):
+    """Plain version of the K7 stats with the polygon path's epilogue."""
+    cnt, psum, bboxes = bbox_stats_plain(keyed, prob, max_components)
+    denom = cnt.float() + hole_cnt
+    scores = torch.where(denom > 0, (psum.float() + hole_sum)
+                         / denom.clamp(min=1.0), 0.0)
+    return bboxes, scores, valid_root & (cnt > 0)
+
+
+def poly_stats(keyed: torch.Tensor, valid_root: torch.Tensor,
+               prob: torch.Tensor, hole_sum: torch.Tensor,
+               hole_cnt: torch.Tensor, max_components: int):
+    """K7 stats as the polygon path takes them: per slot of ``keyed`` over
+    ``prob``, the bbox (N, K, 4) int32 as in ``bbox_stats``, the score
+    (N, K) f32, the mean prob over the slot's pixels and its holes
+    (``hole_sum`` and ``hole_cnt`` from ``hole_stats``; 0 where both are
+    empty), and valid (N, K) bool, ``valid_root`` where the slot has
+    pixels. Counts its launch as ``bbox_stats``: it is the same kernel."""
+    keyed, prob = _stats_inputs(keyed, prob)
+    k = max_components
+    if hole_sum.dtype != torch.float32 or hole_cnt.dtype != torch.float32:
+        raise TypeError("hole sums and counts must be float32")
+    if not on_cuda(keyed, valid_root, prob, hole_sum, hole_cnt):
+        return poly_stats_plain(keyed, valid_root, prob, hole_sum, hole_cnt,
+                                k)
+    n, h, w = prob.shape
+    dev = prob.device
+    keyed, prob = keyed.contiguous(), prob.contiguous()
+    valid_root = valid_root.contiguous().view(torch.uint8)
+    hole_sum, hole_cnt = hole_sum.contiguous(), hole_cnt.contiguous()
+    lib = load_library()
+    scratch = torch.empty(lib.cc_bbox_stats_scratch_bytes(n, k),
+                          dtype=torch.uint8, device=dev)
+    bboxes = torch.empty((n, k, 4), dtype=torch.int32, device=dev)
+    scores = torch.empty((n, k), dtype=torch.float32, device=dev)
+    valid = torch.empty((n, k), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.cc_poly_stats(
+            keyed.data_ptr(), prob.data_ptr(), valid_root.data_ptr(),
+            hole_sum.data_ptr(), hole_cnt.data_ptr(), scratch.data_ptr(),
+            bboxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), n, h, w,
+            k, stream_of(prob))
+    check_launch(err, "poly_stats")
+    LAUNCHES["bbox_stats"] += 1
+    return bboxes, scores, valid
 
 
 def pack_bits_plain(mask: torch.Tensor) -> torch.Tensor:
@@ -563,8 +628,9 @@ def device_boxes(prob_maps: torch.Tensor, thresh: float = 0.3,
 def device_poly_stats(prob_maps: torch.Tensor, thresh: float = 0.3,
                       max_components: int = 1000):
     """Device half of the polygon postprocess over a batch (N, H, W):
-    threshold -> K3 -> K4 -> per-slot count, prob sum and bbox -> K3/K4 on
-    the background -> K6 -> hole-filled scores, and the bit-packed bitmap.
+    threshold -> K3 -> K4 -> K3/K4 on the background -> K6 -> per-slot
+    bbox, hole-filled score and valid flag (K7's stats, ``poly_stats``),
+    and the bit-packed bitmap.
     Returns (packed (N, H, ⌈W/8⌉) uint8, bboxes (N, K, 4) int32 [xmin,
     ymin, xmax, ymax], scores (N, K) f32, valid (N, K) bool). A slot's score
     is its mean prob over the component and its holes wherever it has
@@ -573,13 +639,11 @@ def device_poly_stats(prob_maps: torch.Tensor, thresh: float = 0.3,
     k = max_components
     mask = prob > thresh
     keyed, valid_root = compact_slots(connected_components(mask), k)
-    cnt, psum, bboxes = bbox_stats(keyed, prob, k)
     bg_keyed, _ = compact_slots(connected_components(~mask, 4), k)
     hole_sum, hole_cnt = hole_stats(mask, keyed, bg_keyed, prob, k)
-    denom = cnt.float() + hole_cnt
-    scores = torch.where(denom > 0, (psum.float() + hole_sum)
-                         / denom.clamp(min=1.0), 0.0)
-    return pack_bits(mask), bboxes, scores, valid_root & (cnt > 0)
+    bboxes, scores, valid = poly_stats(keyed, valid_root, prob, hole_sum,
+                                       hole_cnt, k)
+    return pack_bits(mask), bboxes, scores, valid
 
 
 def component_boxes(prob: torch.Tensor, labels: torch.Tensor,

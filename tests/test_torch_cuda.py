@@ -179,12 +179,65 @@ def test_hole_stats_sweep_matches_plain_version(name, shape, device):
         assert float(ref_cnt.sum()) > 0
 
 
+def _k7_inputs(name, shape, k, device):
+    """keyed, valid_root, prob, hole_sum and hole_cnt by the kernels (K3 ->
+    K4 on a K3 sweep mask, K3/K4 on its 4-connected background -> K6), prob
+    from a seed."""
+    mask = _sweep_mask(name, shape).to(device)
+    prob = torch.from_numpy(
+        np.random.RandomState(0).rand(*shape).astype(np.float32)).to(device)
+    keyed, valid_root = cc.compact_slots(cc.connected_components(mask), k)
+    bg_keyed, _ = cc.compact_slots(cc.connected_components(~mask, 4), k)
+    return (keyed, valid_root, prob) + cc.hole_stats(mask, keyed, bg_keyed,
+                                                     prob, k)
+
+
+@pytest.mark.parametrize("shape", [(3, 96, 384), (2, 65, 257), (1, 1, 1)])
+@pytest.mark.parametrize("k", [1, 10, 1000])
+@pytest.mark.parametrize("name", K3_SWEEP)
+def test_bbox_stats_sweep_matches_plain_version(name, k, shape, device):
+    """The K7 stats kernel (bbox_stats form) on K3's hard masks: one
+    component, none, thousands, more than K; whole and ragged images and
+    1x1x1: counts and bboxes exact, prob sums (f64 in atomic order) within
+    1e-9 of their size."""
+    keyed, _, prob, _, _ = _k7_inputs(name, shape, k, device)
+    cc.reset_launches()
+    cnt, psum, bbox = cc.bbox_stats(keyed, prob, k)
+    assert cc.LAUNCHES["bbox_stats"] == 1
+    ref = cc.bbox_stats_plain(keyed, prob, k)
+    assert (cnt.dtype, psum.dtype, bbox.dtype) == (torch.int32, torch.float64,
+                                                   torch.int32)
+    assert torch.equal(cnt, ref[0]) and torch.equal(bbox, ref[2])
+    torch.testing.assert_close(psum, ref[1], rtol=0,
+                               atol=1e-9 * max(1.0, ref[1].abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(3, 96, 384), (2, 65, 257), (1, 1, 1)])
+@pytest.mark.parametrize("k", [1, 10, 1000])
+@pytest.mark.parametrize("name", K3_SWEEP)
+def test_poly_stats_sweep_matches_plain_version(name, k, shape, device):
+    """The K7 stats kernel with the polygon path's epilogue on the same
+    inputs: bboxes and valid exact, hole-filled scores within 1e-6 (the f64
+    sums in atomic order may round to another f32)."""
+    args = _k7_inputs(name, shape, k, device) + (k,)
+    cc.reset_launches()
+    bboxes, scores, valid = cc.poly_stats(*args)
+    assert cc.LAUNCHES["bbox_stats"] == 1
+    ref = cc.poly_stats_plain(*args)
+    assert (bboxes.dtype, scores.dtype, valid.dtype) == (
+        torch.int32, torch.float32, torch.bool)
+    assert torch.equal(bboxes, ref[0]) and torch.equal(valid, ref[2])
+    torch.testing.assert_close(scores, ref[1], rtol=0, atol=1e-6)
+
+
 def test_repeated_calls_give_the_first_result(device):
-    """50 back-to-back calls of K4 and of K6 on one input of the serving
-    size (noise near the percolation threshold, 8x640x640): every slot map,
-    valid root and hole count equal to the first call's, every hole sum
-    within 1e-6 of it (f64 sums in atomic order, rounded to f32). Catches
-    races in the look-back and in the ranks written in place."""
+    """50 back-to-back calls of K4, K6, the K7 stats in both forms and the
+    K7 bit-pack on one input of the serving size (noise near the
+    percolation threshold, 8x640x640): every slot map, valid root, hole
+    count, pixel count, bbox, valid flag and packed byte equal to the first
+    call's, every hole sum, prob sum and score within 1e-6 of it (f64 sums
+    in atomic order). Catches races in the look-back, in the ranks written
+    in place and in the last block's epilogue."""
     rng = np.random.RandomState(5)
     prob = torch.from_numpy(rng.rand(8, 640, 640).astype(np.float32))
     prob = prob.to(device)
@@ -203,6 +256,20 @@ def test_repeated_calls_give_the_first_result(device):
         assert torch.equal(valid_root, first[1])
         assert torch.equal(hole_cnt, holes[1])
         torch.testing.assert_close(hole_sum, holes[0], rtol=1e-6, atol=1e-6)
+    k7_args = (first[0], first[1], prob) + holes + (K,)
+    stats = cc.bbox_stats(first[0], prob, K)
+    poly = cc.poly_stats(*k7_args)
+    packed = cc.pack_bits(mask)
+    assert torch.equal(stats[0], cc.bbox_stats_plain(first[0], prob, K)[0])
+    assert torch.equal(packed, cc.pack_bits_plain(mask))
+    runs = [(cc.bbox_stats(first[0], prob, K), cc.poly_stats(*k7_args),
+             cc.pack_bits(mask)) for _ in range(50)]
+    for (cnt, psum, bbox), (bboxes, scores, valid), bits in runs:
+        assert torch.equal(cnt, stats[0]) and torch.equal(bbox, stats[2])
+        torch.testing.assert_close(psum, stats[1], rtol=1e-6, atol=1e-6)
+        assert torch.equal(bboxes, poly[0]) and torch.equal(valid, poly[2])
+        torch.testing.assert_close(scores, poly[1], rtol=1e-6, atol=1e-6)
+        assert torch.equal(bits, packed)
 
 
 def _assert_k5_matches_plain(args):
@@ -288,11 +355,26 @@ def test_device_poly_stats_on_the_card_match_the_cpu(scene, device):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("width", [1, 7, 9, 100, 641])
+@pytest.mark.parametrize("width", [1, 7, 8, 9, 16, 100, 640, 641])
 def test_pack_bits_widths_match_plain_version(width, device):
-    mask = torch.from_numpy(np.random.RandomState(width).rand(2, 33, width)
-                            < 0.5).to(device)
+    """The bit-pack at widths that take the word path (W % 8 == 0) and the
+    row path, on bool masks, on uint8 masks whose set bytes are 1, 2, 127
+    or 255, and on a view of those bytes one byte into a buffer, so that
+    its base is not 16-byte aligned: the kernel's scalar path, exact all
+    the same."""
+    rng = np.random.RandomState(width)
+    mask = torch.from_numpy(rng.rand(3, 33, width) < 0.5).to(device)
     assert torch.equal(cc.pack_bits(mask), cc.pack_bits_plain(mask))
+    values = rng.choice(np.array([0, 0, 1, 2, 127, 255], np.uint8),
+                        (3, 33, width))
+    bytes_ = torch.from_numpy(values).to(device)
+    assert torch.equal(cc.pack_bits(bytes_), cc.pack_bits_plain(bytes_))
+    flat = torch.cat([bytes_.new_zeros(1), bytes_.flatten()])
+    view = flat[1:].view(bytes_.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    cc.reset_launches()
+    assert torch.equal(cc.pack_bits(view), cc.pack_bits_plain(view))
+    assert cc.LAUNCHES["pack_bits"] == 1
 
 
 def test_fast_boxes_on_the_card_match_the_cpu(device):

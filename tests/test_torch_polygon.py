@@ -39,7 +39,7 @@ from db_text_minimal_tpu_torch.metrics import DetectionDetEvalEvaluator
 from db_text_minimal_tpu_torch.ops import cc
 from db_text_minimal_tpu_torch.ops import geometry as geo
 from db_text_minimal_tpu_torch.weights import state_dict_from_jax
-from torch_scenes import SCENES, score_tol
+from torch_scenes import K3_SWEEP, SCENES, k3_sweep_mask, score_tol
 
 torch.set_num_threads(1)
 
@@ -174,6 +174,148 @@ def test_pack_bits_matches_numpy(width):
     mask = np.random.RandomState(width).rand(3, 5, width) < 0.5
     got = cc.pack_bits(_t(mask))
     np.testing.assert_array_equal(got.numpy(), np.packbits(mask, axis=-1))
+
+
+def _encoded_bbox_stats(keyed, prob, k):
+    """The K7 stats kernel's scheme in plain torch: each group of 4
+    neighbouring pixels takes its row and column from one division, then
+    steps x and wraps to the next row (any W >= 1); the extremes are
+    max-reduced as W - x, H - y, x + 1 and y + 1 into zeros (one memset)
+    and decoded, so an empty slot gives [W, H, -1, -1] by itself."""
+    n, h, w = prob.shape
+    hw = h * w
+    p0 = torch.arange(0, hw, 4)
+    y, x = p0 // w, p0 % w
+    xs, ys = [], []
+    for _ in range(4):
+        xs.append(x)
+        ys.append(y)
+        x = x + 1
+        wrap = x == w
+        x, y = torch.where(wrap, 0, x), torch.where(wrap, y + 1, y)
+    xs = torch.stack(xs, 1).reshape(-1)[:hw].expand(n, -1)
+    ys = torch.stack(ys, 1).reshape(-1)[:hw].expand(n, -1)
+    key = keyed.reshape(n, -1).long()
+
+    def reduce(values, how):
+        out = torch.zeros((n, k + 1), dtype=values.dtype)
+        if how == "sum":
+            out.scatter_add_(1, key, values)
+        else:
+            out.scatter_reduce_(1, key, values, "amax")
+        return out[:, :k]
+
+    cnt = reduce(torch.ones_like(key), "sum")
+    psum = reduce(prob.reshape(n, -1).double(), "sum")
+    ext = [reduce(v, "max") for v in (w - xs, h - ys, xs + 1, ys + 1)]
+    bbox = torch.stack([w - ext[0], h - ext[1], ext[2] - 1, ext[3] - 1], -1)
+    return cnt.to(torch.int32), psum, bbox.to(torch.int32)
+
+
+def _k7_case(case):
+    """(mask, prob) of one image: a scene at its threshold, a K3 sweep mask
+    at a ragged size (one row, one column, one pixel) with prob from a
+    seed, or noise with more components than K."""
+    kind, name, *size = case.split(":")
+    if kind == "scene":
+        prob, thresh, _ = POLY_SCENES[name]()
+        return prob > thresh, prob
+    h, w = map(int, size[0].split("x"))
+    prob = np.random.RandomState(4).rand(h, w).astype(np.float32)
+    if kind == "noise":
+        return prob > 0.5, prob
+    return k3_sweep_mask(name, h, w), prob
+
+
+K7_CASES = ([f"scene:{s}" for s in sorted(POLY_SCENES)]
+            + [f"sweep:{m}:{s}" for m in K3_SWEEP
+               for s in ("37x53", "1x40", "50x1", "1x1")]
+            + ["noise::96x128"])
+
+
+@pytest.mark.parametrize("case", K7_CASES)
+def test_encoded_extremes_give_the_plain_stats(case):
+    """The identity the K7 stats kernel rests on: zero-filled max
+    reductions of W - x, H - y, x + 1 and y + 1, decoded, equal
+    ``bbox_stats_plain`` bit for bit, with K of 1, 10 and 1000 (components
+    beyond K in slot K, dropped), on all-foreground and all-background
+    maps, and at widths below a group of 4 pixels."""
+    mask, prob = _k7_case(case)
+    labels = cc.connected_components_plain(_t(mask)[None])
+    for k in (1, 10, 1000):
+        keyed, _ = cc.compact_slots_plain(labels, k)
+        got = _encoded_bbox_stats(keyed, _t(prob)[None], k)
+        ref = cc.bbox_stats_plain(keyed, _t(prob)[None], k)
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("scene", sorted(POLY_SCENES))
+def test_poly_stats_plain_matches_jax(scene):
+    """The plain version of the K7 stats with the polygon epilogue, on the
+    plain K3, K4 and K6, against the JAX ``_device_poly_stats_single``:
+    bboxes and valid exact, scores within the JAX f32 sums' error."""
+    prob, thresh, _ = POLY_SCENES[scene]()
+    ref = [np.asarray(a) for a in jcc._device_poly_stats_single(
+        jnp.asarray(prob), jnp.float32(thresh), max_components=K)]
+    p = _t(prob)[None]
+    mask = p > thresh
+    keyed, valid_root = cc.compact_slots_plain(
+        cc.connected_components_plain(mask), K)
+    bg_keyed, _ = cc.compact_slots_plain(
+        cc.connected_components_plain(~mask, 4), K)
+    hole = cc.hole_stats_plain(mask, keyed, bg_keyed, p, K)
+    bboxes, scores, valid = (t[0].numpy() for t in cc.poly_stats(
+        keyed, valid_root, p, *hole, K))
+    assert (bboxes.dtype, scores.dtype, valid.dtype) == (
+        np.int32, np.float32, np.bool_)
+    np.testing.assert_array_equal(bboxes, ref[1])
+    np.testing.assert_array_equal(valid, ref[3])
+    assert np.abs(scores - ref[2]).max() <= score_tol(scene)
+
+
+def _gather8(lo, hi):
+    """Bits 56..63 of (lo | hi << 32) * 0x8040201008040201 mod 2**64, in
+    int64 without overflow: the 32-bit halves' products, carried."""
+    cl, ch = 0x08040201, 0x80402010
+    t = (lo * ch + hi * cl) & 0xFFFFFFFF
+    return ((((lo * cl) >> 32) + t) >> 24) & 0xFF
+
+
+def _pack_by_words(mask):
+    """The K7 bit-pack kernel in plain torch. W % 8 == 0: the batch as one
+    byte stream, 16 bytes a thread (the last may hold 8), each byte set to
+    0 or 1 (``__vsetne4``), each 8 gathered into a byte by the 64-bit
+    multiply. Other widths: a byte from 8 pixels of a row, MSB first."""
+    n, h, w = mask.shape
+    w8 = -(-w // 8)
+    if w % 8:
+        bits = torch.zeros((n, h, w8 * 8), dtype=torch.long)
+        bits[..., :w] = (mask != 0).long()
+        return (bits.view(n, h, w8, 8)
+                << torch.arange(7, -1, -1)).sum(-1).to(torch.uint8)
+    flat = mask.reshape(-1).long()
+    total = flat.numel()
+    flat = torch.cat([flat, flat.new_zeros(-total % 16)])
+    ones = (flat != 0).long().view(-1, 2, 4)
+    words = (ones << torch.arange(0, 32, 8)).sum(-1)    # little-endian
+    packed = _gather8(words[:, 0], words[:, 1])
+    return packed[:total // 8].to(torch.uint8).view(n, h, w8)
+
+
+@pytest.mark.parametrize("width", [1, 7, 8, 9, 16, 100, 640, 641])
+def test_pack_by_words_matches_numpy(width):
+    """The bit-pack kernel's scheme against ``np.packbits`` of
+    ``mask != 0``, on bool masks and on uint8 masks holding 0, 1, 2 and
+    255, with a row count that leaves the word path's last thread 8
+    bytes where W = 8."""
+    rng = np.random.RandomState(width)
+    for mask in (rng.rand(3, 5, width) < 0.5,
+                 rng.choice(np.array([0, 1, 2, 255], np.uint8),
+                            (3, 5, width))):
+        got = _pack_by_words(_t(mask).view(torch.uint8))
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.packbits(mask != 0, axis=-1))
 
 
 def test_bbox_stats_fill_values_and_types():
