@@ -73,8 +73,21 @@ Phases, one output line each (or more), stopping at the first failure:
              calibrated int8 forward on the card against the CPU (float
              convs in f64 and in f32) and its fused and unfused forms
              against each other.
+8. quality - the quality bench end to end at 640x640, batch 16: a small
+             hard set from the port's generator (32 train and 16 test
+             images, seed 7), quality_bench.main for one epoch with
+             --reduction none --polygon --save_checkpoint (K2 in every
+             step; K3-K7 in the eval's four rows), then --eval_only
+             --quant on the checkpoint (P1 in the int8 convs, K3-K6 in the
+             device row); both reports must have the JAX report's keys and
+             finite P/R/F. Logs the generation, train and eval times, each
+             row's postprocess time, the loader's share of the epoch and
+             the host ms of a training sample.
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+Every kernel time is taken with the 50 MB L2 flushed before each call
+(``flush_l2``), as a caller that did other work in between finds it; the
+flush's own kernel is left out of the device sums. Then a
+``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when no GPU is available or any phase fails.
 """
@@ -144,6 +157,18 @@ KERNEL_IDS = {"fused_db_step": "K1", "db_step_forward": "K2",
               "int8_epilogue_f32": "P1", "int8_epilogue_int8": "P1"}
 
 
+# the L2 flush between timed calls, and its kernel's name in the traces
+L2_FLUSH_BYTES = 256 << 20
+FLUSH_NAME = "_l2_flush_kernel"
+# the quality phase: a small hard set at full width, the JAX report's keys
+QUALITY_TRAIN, QUALITY_TEST, QUALITY_BATCH = 32, 16, 16
+REPORT_KEYS = ["config", "train_wall_s", "eval_wall_s", "history",
+               "results"]
+CONFIG_KEYS = ["eval_only", "checkpoint", "train_config", "thresh",
+               "box_thresh", "unclip_ratio", "n_train", "n_test", "backend",
+               "quant", "quant_head"]
+
+
 # the counter a row's kernel adds to, where it is not the row's own name
 COUNTER = {"poly_stats": "bbox_stats", "pack_bits_w100": "pack_bits"}
 
@@ -160,28 +185,61 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _l2_flush_kernel(ptr, n, BLOCK: "tl.constexpr"):
+    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)  # noqa: F821
+    mask = offs < n
+    tl.store(ptr + offs, tl.load(ptr + offs, mask=mask) + 1,  # noqa: F821
+             mask=mask)
+
+
+_FLUSH: dict = {}
+
+
+def flush_l2() -> None:
+    """Read and write a buffer of L2_FLUSH_BYTES, five times the H100's
+    50 MB L2, so that the next call finds its inputs in device memory, as a
+    caller that did other work in between does. Its Triton kernel,
+    ``_l2_flush_kernel``, is left out of every device sum (FLUSH_NAME)."""
+    if not _FLUSH:
+        import triton
+        import triton.language as tl
+
+        globals()["tl"] = tl
+        _FLUSH["kernel"] = triton.jit(_l2_flush_kernel)
+        _FLUSH["buf"] = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                                    device="cuda")
+    buf = _FLUSH["buf"]
+    _FLUSH["kernel"][((buf.numel() + 4095) // 4096,)](buf, buf.numel(),
+                                                      BLOCK=4096)
+
+
 def timed(fn, reps: int) -> float:
     """Mean milliseconds of ``fn`` on the card over ``reps`` runs after two
-    warm-up runs, from CUDA events."""
+    warm-up runs, from CUDA events around each run, with the L2 flushed
+    before each (``flush_l2``, outside the events)."""
     for _ in range(2):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    pairs = []
     for _ in range(reps):
+        flush_l2()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
+        end.record()
+        pairs.append((start, end))
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def device_kernels(fn, reps: int) -> tuple[float, dict, float]:
     """Device time of ``fn`` from torch.profiler: the card's activity
     (kernels, copies, fills) per call in ms, ms per call by kernel name,
     and device operations per call, over ``reps`` calls after one warm-up
-    call. A trace that holds no device activity at all (the profiler now
-    and then drops a whole window) is taken again, up to three times."""
+    call, the L2 flushed before each call (the flush's kernel is not
+    counted). A trace that holds no device activity at all (the profiler
+    now and then drops a whole window) is taken again, up to three
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -193,10 +251,11 @@ def device_kernels(fn, reps: int) -> tuple[float, dict, float]:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                flush_l2()
                 fn()
             torch.cuda.synchronize()
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            if e.device_type == DeviceType.CUDA and FLUSH_NAME not in e.name:
                 ops += 1
                 by_name[e.name] = (by_name.get(e.name, 0.0)
                                    + e.time_range.elapsed_us() / 1e3 / reps)
@@ -1355,6 +1414,113 @@ def phase_train(workdir: str) -> dict:
     return launches
 
 
+def reset_all_launches() -> None:
+    for module in (cc, D, I8):
+        module.reset_launches()
+
+
+def all_launches() -> dict:
+    return {**cc.LAUNCHES, **D.LAUNCHES, **I8.LAUNCHES}
+
+
+def check_report(what: str, report: dict, rows: tuple) -> None:
+    """The JAX report's keys, and finite P/R/F in [0, 1] in every row."""
+    if (list(report) != REPORT_KEYS
+            or list(report["config"]) != CONFIG_KEYS):
+        raise AssertionError(f"{what}: report keys {list(report)}, config "
+                             f"keys {list(report['config'])}")
+    results = report["results"]
+    if sorted(k for k in results if k != "n_test_images") != sorted(rows):
+        raise AssertionError(f"{what}: rows {list(results)}")
+    for row in rows:
+        for proto in ("iou_pascal", "deteval"):
+            check_prf(f"{what} {row} {proto}", 0.0,
+                      *(results[row][proto][k]
+                        for k in ("precision", "recall", "hmean")))
+
+
+def phase_quality(workdir: str) -> dict:
+    """The quality bench end to end at full width: a small hard set from
+    the port's generator (QUALITY_TRAIN + QUALITY_TEST images at 640x640,
+    seed 7), ``quality_bench.main`` for one epoch at batch 16 with
+    ``--reduction none --polygon --save_checkpoint`` (K2 in every step,
+    K3-K7 in the eval's rows), then ``--eval_only --quant`` on that
+    checkpoint (P1 in every int8 conv, K3-K6 in the device row). The
+    counts are set to 0 before each run and read after it. Also the host
+    ms of a training sample (decode, augment, labels) on one thread."""
+    from db_text_minimal_tpu_torch.data import TotalTextDataset
+    from db_text_minimal_tpu_torch.data.synthetic import generate_hard
+
+    t_phase = t0 = time.perf_counter()
+    data_dir = os.path.join(workdir, "hard")
+    section = generate_hard(data_dir, n_train=QUALITY_TRAIN,
+                            n_test=QUALITY_TEST, seed=7)
+    gen_s = time.perf_counter() - t0
+    dataset = TotalTextDataset(section["train_dir"], section["train_gt_dir"],
+                               ["###"], compact_dtypes=True)
+    t0 = time.perf_counter()
+    for i in range(len(dataset)):
+        dataset[i]
+    sample_ms = (time.perf_counter() - t0) * 1e3 / len(dataset)
+
+    ckpt = os.path.join(workdir, "quality.ckpt")
+    common = ["--data_dir", data_dir, "--batch_size", str(QUALITY_BATCH),
+              "--test_batch_size", str(QUALITY_BATCH), "--reduction",
+              "none", "--thresh", "0.25", "--box_thresh", "0.5"]
+    reset_all_launches()
+    report = quality_bench.main(quality_bench.load_args(common + [
+        "--epochs", "1", "--polygon", "--save_checkpoint", ckpt, "--out",
+        os.path.join(workdir, "quality.json")]))
+    torch.cuda.synchronize()
+    launches = all_launches()
+    steps = QUALITY_TRAIN // QUALITY_BATCH
+    if not (launches["db_step_forward"] == launches["db_step_backward"]
+            == steps):
+        raise AssertionError(f"quality: K2 launches {launches} in {steps} "
+                             f"steps")
+    check_launches(launches, RECT_PATH + POLY_PATH, "quality bench")
+    check_report("quality bench", report,
+                 ("host", "device", "host_poly", "device_poly"))
+
+    reset_all_launches()
+    report_q = quality_bench.main(quality_bench.load_args(common + [
+        "--eval_only", "--checkpoint", ckpt, "--quant", "--out",
+        os.path.join(workdir, "quality_int8.json")]))
+    torch.cuda.synchronize()
+    launches_q = all_launches()
+    if launches_q["int8_epilogue"] == 0:
+        raise AssertionError(f"quality --quant: P1 never launched "
+                             f"{launches_q}")
+    check_launches(launches_q, RECT_PATH, "quality bench --quant")
+    check_report("quality bench --quant", report_q, ("host", "device"))
+    if not report_q["config"]["train_config"]["reduction"] == "none":
+        raise AssertionError("quality --quant: the checkpoint's sidecar "
+                             "was not read")
+
+    epoch = report["history"][0]
+    results = {name: {"deteval_f": r["results"][row]["deteval"]["hmean"],
+                      "postprocess_wall_s": r["results"][row][
+                          "postprocess_wall_s"]}
+               for name, r, row in (
+                   ("host", report, "host"), ("device", report, "device"),
+                   ("host_poly", report, "host_poly"),
+                   ("device_poly", report, "device_poly"),
+                   ("int8 host", report_q, "host"),
+                   ("int8 device", report_q, "device"))}
+    log(f"quality ok: {QUALITY_TRAIN} train and {QUALITY_TEST} test images "
+        f"of generate_hard at 640x640 made in {gen_s:.2f} s; one epoch of "
+        f"{steps} steps at batch {QUALITY_BATCH}, train_wall_s "
+        f"{report['train_wall_s']}, eval_wall_s {report['eval_wall_s']}, "
+        f"int8 eval_wall_s {report_q['eval_wall_s']}; the epoch "
+        f"{epoch['wall_s']} s, of which waiting on the loader "
+        f"{epoch['loader_wait_s']} s, a sample {epoch['sample_ms']} ms in a "
+        f"loader thread; BaseDataset.__getitem__ on one thread "
+        f"{sample_ms:.2f} ms a training sample; rows {json.dumps(results)}; "
+        f"launches {json.dumps(launches)}, --quant {json.dumps(launches_q)}; "
+        f"the phase took {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def check_prf(what, loss, precision, recall, hmean) -> None:
     prf = (precision, recall, hmean)
     if not (np.isfinite(loss)
@@ -1440,6 +1606,7 @@ def main() -> int:
             phase_check(pth)
             phase_check_polygon()
             phase_check_train(workdir)
+            phase_quality(workdir)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -1,19 +1,29 @@
-"""Quality benchmark: evaluate a trained model with every postprocess path
-(host and device, rect and polygon) under both protocols (IoU-Pascal and
-DetEval).
+"""Quality benchmark: train on a dataset directory (or load a checkpoint),
+then evaluate with every postprocess path (host and device, rect and
+polygon) under both protocols (IoU-Pascal and DetEval), and write one
+metrics JSON.
 
 Port of ``db_text_minimal_tpu/cli/quality_bench.py``: ``load_args``,
-``build_cfg``, ``make_quant_forward`` (the int8 forward of ``--quant``),
-``full_eval`` and ``warn_ctw_polygon_operating_point``.
-``main``, which trains on a dataset directory, needs the cv2 datasets
-(``build_dataset``), which are not ported yet; until then it raises.
-``full_eval`` takes any trainer and loader of batch dicts, for example
-batches of ``data.scenes.text_batch``.
+``build_cfg``, ``_limit``, ``make_quant_forward`` (the int8 forward of
+``--quant``), ``full_eval``, ``warn_ctw_polygon_operating_point`` and
+``main``. The report has the JAX report's keys; ``config.backend`` is the
+torch device's type (``"cuda"``), and each ``history`` entry also holds the
+epoch's wall seconds, the seconds the step waited on the loader and the
+mean host ms of a sample in a loader thread. The JAX debug flag
+``--dump_eval_dir`` is not ported.
+
+Usage::
+
+    python -m db_text_minimal_tpu_torch.cli.quality_bench \
+        --data_dir tmp/hb --out demo/hard_bench_torch/metrics.json \
+        --epochs 10 [--reduction none] [--polygon] [--save_checkpoint CKPT]
+        [--eval_only --checkpoint CKPT [--quant]] [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -21,14 +31,16 @@ import time
 import numpy as np
 
 from ..config import load_config
+from ..data import DataLoader, build_dataset
 from ..metrics import (DetectionDetEvalEvaluator, DetectionIoUEvaluator,
                        QuadMetric)
 from ..models.head import fuse_variables
 from ..models.quant_infer import DEFAULT_SKIP
 from ..postprocess import (DeviceBoxRepresenter, DevicePolyRepresenter,
                            SegDetectorRepresenter)
-from ..train.trainer import device_preprocess, to_device
-from ..utils import CAFFE_MEAN
+from ..train.checkpoints import load_widths, save_checkpoint
+from ..train.trainer import Trainer, device_preprocess, to_device
+from ..utils import CAFFE_MEAN, resolve_device
 from .common import make_folded_forward
 
 
@@ -56,9 +68,19 @@ def load_args(argv=None):
     parser.add_argument("--lrs_max_iters", type=int, default=0,
                         help="the poly decay horizon in steps (default: "
                              "epochs x batches per epoch)")
+    parser.add_argument("--no_final_eval", action="store_true",
+                        help="skip the end-of-run eval (the first segments "
+                             "of a run split across processes)")
     parser.add_argument("--pretrained_backbone", type=str, default=None)
     parser.add_argument("--dcn_offset_lr_mult", type=float, default=1.0)
+    parser.add_argument("--checkpoint", type=str, default=None,
+                        help="warm start, or the weights of --eval_only")
+    parser.add_argument("--eval_only", action="store_true")
     parser.add_argument("--limit_train", type=int, default=None)
+    parser.add_argument("--limit_test", type=int, default=None)
+    parser.add_argument("--eval_every", type=int, default=0,
+                        help="run the in-loop eval every N epochs (0: only "
+                             "the final eval)")
     # the reference's eval constants (Makefile:26-28)
     parser.add_argument("--thresh", type=float, default=0.25)
     parser.add_argument("--box_thresh", type=float, default=0.50)
@@ -68,6 +90,9 @@ def load_args(argv=None):
                         help="line-level polygon preset (the CTW1500 "
                              "protocol): implies --polygon and, unless "
                              "--unclip_ratio is given, unclip 2.5")
+    parser.add_argument("--save_checkpoint", type=str, default=None,
+                        help="save the trained state here, before the "
+                             "final eval")
     parser.add_argument("--img_size", type=int, default=640)
     parser.add_argument("--quant", action="store_true",
                         help="evaluate the int8 inference forward "
@@ -87,6 +112,15 @@ def load_args(argv=None):
     if args.unclip_ratio is None:
         args.unclip_ratio = 2.5 if args.line_level else 1.5
     return args
+
+
+def _limit(dataset, n):
+    """The first ``n`` samples of ``dataset`` (all when ``n`` is 0 or
+    None)."""
+    if n:
+        dataset.image_paths = dataset.image_paths[:n]
+        dataset.all_anns = dataset.all_anns[:n]
+    return dataset
 
 
 def build_cfg(args):
@@ -115,7 +149,11 @@ def build_cfg(args):
         "model": {"backbone": args.backbone, "neck": args.neck,
                   "head": "DBHead",
                   "pretrained_backbone_path": args.pretrained_backbone or "",
-                  "finetune_cp_path": ""},
+                  "finetune_cp_path": "",
+                  # a pruned checkpoint's widths, which the Trainer refuses
+                  # until pruning is ported
+                  "widths": (load_widths(args.checkpoint)
+                             if args.checkpoint else None)},
         "optimizer": {"lr": args.lr, "reduction": args.reduction,
                       "dcn_offset_lr_mult": args.dcn_offset_lr_mult},
         "lrs": ({"mode": "poly", "warmup_iters": 100,
@@ -244,11 +282,105 @@ def warn_ctw_polygon_operating_point(args) -> bool:
 
 def main(args=None):
     args = args or load_args()
+    resolve_device(args.device)   # refuse a missing GPU before any work
     warn_ctw_polygon_operating_point(args)
-    raise NotImplementedError(
-        "quality_bench.main trains on a dataset directory through "
-        "data.build_dataset and the cv2 datasets, which are not ported yet "
-        "(ROADMAP 'Still open' item 1); full_eval runs on any loader")
+    cfg = build_cfg(args)
+    train_ds = _limit(build_dataset(cfg, is_training=True), args.limit_train)
+    test_ds = _limit(build_dataset(cfg, is_training=False), args.limit_test)
+    section = cfg.data[cfg.dataset.name]
+    for dataset, where in ((train_ds, section.train_dir),
+                           (test_ds, section.test_dir)):
+        if not len(dataset) and not (args.eval_only and dataset is train_ds):
+            raise FileNotFoundError(f"no images in {where}")
+    train_loader = DataLoader(train_ds, int(cfg.hps.batch_size),
+                              shuffle=True)
+    test_loader = DataLoader(test_ds, int(cfg.hps.test_batch_size))
+    trainer = Trainer(cfg, train_loader, test_loader)
+    t0 = time.perf_counter()
+    history = []
+    if args.eval_only:
+        assert args.checkpoint, "--eval_only requires --checkpoint"
+        state = trainer.resume_state(args.checkpoint)
+    else:
+        state = (trainer.resume_state(args.checkpoint) if args.checkpoint
+                 else trainer.init_state())
+        for epoch in range(int(cfg.hps.no_epochs)):
+            state, train_loss, _, _ = trainer.train_epoch(state, epoch)
+            seconds = train_loader.sample_seconds
+            entry = {"epoch": epoch, "train_loss": round(train_loss, 5),
+                     "wall_s": round(trainer.epoch_timing["wall_s"], 2),
+                     "loader_wait_s": round(
+                         trainer.epoch_timing["loader_wait_s"], 2),
+                     "sample_ms": round(1e3 * float(np.mean(seconds)), 2)
+                     if seconds else None}
+            if args.eval_every and (epoch + 1) % args.eval_every == 0:
+                test_loss, _, recall, precision, hmean = \
+                    trainer.eval_epoch(state)
+                entry.update({"test_loss": round(test_loss, 5),
+                              "hmean": round(hmean, 4)})
+                if trainer.lrs_mode == "reduce":
+                    trainer.plateau.step(test_loss)
+            trainer.logger.info("epoch %d: %s", epoch, entry)
+            history.append(entry)
+    train_wall = time.perf_counter() - t0
+
+    train_config = {
+        "backbone": args.backbone, "neck": args.neck,
+        "reduction": args.reduction,
+        "pretrained_backbone": bool(args.pretrained_backbone),
+        "epochs": args.epochs, "batch_size": args.batch_size,
+        "lr": args.lr, "lrs": args.lrs,
+        "dcn_offset_lr_mult": args.dcn_offset_lr_mult,
+    }
+    # saved before the final eval, so a failing eval never loses the
+    # training; the sidecar records how the checkpoint was trained
+    if args.save_checkpoint:
+        save_checkpoint(args.save_checkpoint, state.state_dict())
+        with open(args.save_checkpoint + ".train_config.json", "w") as f:
+            json.dump(train_config, f)
+
+    if args.no_final_eval:
+        results, eval_wall = {"skipped": True}, 0.0
+    else:
+        forward = (make_quant_forward(trainer, state, test_loader, args)
+                   if args.quant else None)
+        t0 = time.perf_counter()
+        results = full_eval(trainer, state, test_loader, args,
+                            forward=forward)
+        eval_wall = time.perf_counter() - t0
+
+    if args.eval_only:
+        sidecar = (args.checkpoint or "") + ".train_config.json"
+        if os.path.exists(sidecar):
+            with open(sidecar) as f:
+                train_config = json.load(f)
+        else:
+            train_config = {"unknown": "checkpoint has no "
+                            ".train_config.json sidecar; training "
+                            "hyperparameters not recorded"}
+
+    report = {
+        "config": {
+            "eval_only": bool(args.eval_only),
+            "checkpoint": args.checkpoint,
+            "train_config": train_config,
+            "thresh": args.thresh,
+            "box_thresh": args.box_thresh,
+            "unclip_ratio": args.unclip_ratio,
+            "n_train": len(train_ds), "n_test": len(test_ds),
+            "backend": trainer.device.type,
+            "quant": bool(args.quant), "quant_head": bool(args.quant_head),
+        },
+        "train_wall_s": round(train_wall, 1),
+        "eval_wall_s": round(eval_wall, 1),
+        "history": history,
+        "results": results,
+    }
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps(report["results"], indent=1))
+    return report
 
 
 if __name__ == "__main__":

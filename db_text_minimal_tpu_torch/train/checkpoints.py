@@ -7,7 +7,9 @@ state_dict, "step": int}``, with the reference's key names in the model's
 state_dict, and a ``<path>.json`` of metadata beside it. ``load_params_any``
 reads the model weights of such a file or of a reference-format ``.pth``
 state_dict; the JAX package's own Flax msgpack / orbax checkpoints are not
-read yet. Pruned-width sidecars are not ported.
+read yet. ``load_widths`` reads a pruned checkpoint's ``.widths.json``
+sidecar, which the ``CheckpointPolicy`` and the ``Trainer`` refuse until
+pruning is ported (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -52,7 +54,8 @@ def load_params_any(path: str) -> dict:
     else:
         raise NotImplementedError(
             f"{path}: only .pth state_dicts and the port's own checkpoints "
-            f"load; Flax msgpack/orbax .ckpt loading is a ROADMAP item")
+            f"load; Flax msgpack/orbax .ckpt loading is ROADMAP queue 1 "
+            f"item 7")
     if not isinstance(sd, dict):
         raise TypeError(f"{path} holds a {type(sd).__name__}, not a "
                         f"state_dict")
@@ -65,6 +68,16 @@ def load_params_any(path: str) -> dict:
     return out
 
 
+def load_widths(checkpoint_path: str) -> dict | None:
+    """The ``<checkpoint>.widths.json`` sidecar of a pruned checkpoint, or
+    None when there is none."""
+    sidecar = checkpoint_path + ".widths.json"
+    if not os.path.exists(sidecar):
+        return None
+    with open(sidecar) as f:
+        return json.load(f)
+
+
 class CheckpointPolicy:
     """The reference's three checkpoints: best hmean, best train and test
     loss together, and last."""
@@ -73,7 +86,8 @@ class CheckpointPolicy:
                  best_hmean_cp_path: str, widths: dict | None = None):
         if widths:
             raise NotImplementedError(
-                "pruned-width checkpoints are not ported (ROADMAP item 16)")
+                "pruned-width checkpoints are not ported (ROADMAP queue 1 "
+                "item 4)")
         self.best_cp_path = os.path.join(root_dir, best_cp_path)
         self.last_cp_path = os.path.join(root_dir, last_cp_path)
         self.best_hmean_cp_path = os.path.join(root_dir, best_hmean_cp_path)

@@ -27,6 +27,7 @@ section is ignored on one card.
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 
 import torch
@@ -215,10 +216,10 @@ class Trainer:
         setup_determinism(self.seed)
         if cfg.model.widths:
             raise NotImplementedError(
-                "pruned widths are not ported (ROADMAP item 16)")
+                "pruned widths are not ported (ROADMAP queue 1 item 4)")
         if (cfg.model.neck or "FPN") != "FPN":
             raise NotImplementedError(f"neck {cfg.model.neck!r} is not "
-                                      f"ported (ROADMAP item 15)")
+                                      f"ported (ROADMAP queue 1 item 8)")
         self.train_loader = train_loader
         self.test_loader = test_loader
         self._train_step = build_train_step(cfg)
@@ -242,6 +243,7 @@ class Trainer:
                                              patience=int(cfg.lrs.patience))
         self.global_step = 0
         self.loss_log: list[dict] = []
+        self.epoch_timing: dict = {}
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
@@ -308,7 +310,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def train_epoch(self, state: TrainState, epoch: int):
         """One pass over ``train_loader``. Returns (state, mean total loss,
-        RunningScore, (last batch, its preds))."""
+        RunningScore, (last batch, its preds)). ``epoch_timing`` then holds
+        the epoch's wall seconds and the seconds the loop waited on the
+        loader for a batch."""
         cfg = self.cfg
         dev = self.device
         running = RunningScore(int(cfg.hps.no_classes))
@@ -338,7 +342,15 @@ class Trainer:
                         scores["Mean IoU"])
             pending = []
 
-        for batch in self.train_loader:
+        t_epoch = time.perf_counter()
+        wait = 0.0
+        batches = iter(self.train_loader)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            wait += time.perf_counter() - t0
+            if batch is None:
+                break
             lr = self.current_lr()
             self.global_step += 1
             n_batches += 1
@@ -353,6 +365,8 @@ class Trainer:
                 flush()
         flush(final=True)
         train_loss = float(loss_sum)
+        self.epoch_timing = {"wall_s": time.perf_counter() - t_epoch,
+                             "loader_wait_s": wait}
         if timer.images_per_sec > 0:
             self.logger.info("throughput: %.1f img/s", timer.images_per_sec)
         return state, train_loss / max(n_batches, 1), running, last

@@ -35,12 +35,17 @@ import db_text_minimal_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names + ["chip_smoke", "compare_kernels"]:
     importlib.import_module(name)
+print(" ".join(names))
 print(len(names))
 """
     proc = subprocess.run([sys.executable, "-c", snippet], cwd=_REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    *names, count = proc.stdout.split()
+    for module in ("data.augment", "data.datasets", "data.synthetic",
+                   "cli.train", "cli.make_synthetic", "cli.quality_bench"):
+        assert f"db_text_minimal_tpu_torch.{module}" in names
+    assert int(count) >= 46
 
 
 def test_port_sources_name_no_jax_import():
@@ -82,3 +87,10 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path):
                                     str(tmp_path / "x.json")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(quality_bench.build_cfg(args))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quality_bench.main(args)
+    from db_text_minimal_tpu_torch.cli import train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(train.load_args(["--config", str(tmp_path / "none.yaml"),
+                                    "--epochs", "1"]))

@@ -768,7 +768,11 @@ def test_full_eval_on_a_cpu_trainer_gives_all_four_rows(tmp_path):
     assert out["host_poly"]["deteval"] == out["device_poly"]["deteval"]
 
 
-def test_quality_bench_main_names_the_missing_datasets():
-    args = qb.load_args(["--data_dir", "/n", "--out", "/tmp/x.json"])
-    with pytest.raises(NotImplementedError, match="Still open' item 1"):
+def test_quality_bench_main_names_the_missing_datasets(tmp_path):
+    """``main`` trains on a dataset directory; one without images is named
+    in the error, before any training."""
+    args = qb.load_args(["--data_dir", str(tmp_path), "--out",
+                         str(tmp_path / "x.json"), "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="train_images"):
         qb.main(args)
+    assert not os.path.exists(tmp_path / "x.json")
