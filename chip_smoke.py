@@ -33,9 +33,12 @@ Phases, one output line each (or more), stopping at the first failure:
              sizes. Every row logs the card's time split by launch.
 3. serve   - serve one batch of 8 synthetic 640x480 images through the
              port's handler in box mode, infer_mode "flax": resnet18 + FPN
-             (inner 256) + FusedDBHead, fp32, weights drawn from a seed and
-             loaded from a .pth with the reference's key names. Every kernel
-             of the rect path (K3-K6) must launch. Then time the batch, K3
+             (inner 256) + FusedDBHead, bf16 (the default on the card),
+             weights drawn from a seed and loaded from a .pth with the
+             reference's key names. Every kernel of the rect path (K3-K6)
+             must launch. Then the same mode in fp32 (the parity
+             configuration): its maps within a mean of 0.02 of bf16's,
+             and both timed in turns. Then time K3
              on the served maps' masks (both connectivities), K4 on their
              labels, K6, K5 and K7's stats (poly_stats form) on their slot
              maps, each held to its plain version.
@@ -55,10 +58,13 @@ Phases, one output line each (or more), stopping at the first failure:
              served batch and on the 8 kernel scenes.
 6. train   - the training configuration of the JAX package's defaults:
              resnet18 + FPN (inner 256) + DBHead in train mode, 640², batch
-             4, fp32 with TF32 off, true per-pixel OHEM, Adam at lr 0.005.
-             Twelve steps of Trainer.train_epoch on one synthetic batch
-             (numpy scenes, GT maps in the compact layout); K2 forward and
-             backward must launch once a step and the loss must fall. Then
+             4, bf16 compute with f32 parameters and loss, true per-pixel
+             OHEM, Adam at lr 0.005. Twelve steps of Trainer.train_epoch on
+             one synthetic batch (numpy scenes, GT maps in the compact
+             layout); K2 forward and backward must launch once a step and
+             the loss must fall. The same in fp32 with TF32 off (the parity
+             configuration), and both at batch 16; each run timed and
+             profiled (busy share, top kernels). Then
              Trainer.eval_epoch in rect mode on two test images (K3-K6 must
              launch), eval_epoch under the default configuration (polygon
              mode, on the host as in the JAX trainer) and the quality
@@ -67,15 +73,18 @@ Phases, one output line each (or more), stopping at the first failure:
 7. check   - device boxes against the host rect-mode SegDetectorRepresenter
              on synthetic scenes, device polygons against the host polygon
              mode on the kernel scenes, K7 on the card against K7 on the
-             CPU, the model on the card against the same model on the CPU,
-             one train step on the card against the same step on the CPU,
+             CPU, the model on the card against the same model on the CPU
+             and one train step on the card against the same step on the
+             CPU (both in the fp32 parity configuration),
              the folded and int8 prob maps against the flax mode's, the
              calibrated int8 forward on the card against the CPU (float
              convs in f64 and in f32) and its fused and unfused forms
              against each other.
 8. quality - the quality bench end to end at 640x640, batch 16: a small
              hard set from the port's generator (32 train and 16 test
-             images, seed 7), quality_bench.main for one epoch with
+             images, seed 7) with the committed trace of cv2 5.0.0's text
+             engine replayed (each image's GT held to the trace's hash),
+             quality_bench.main for one epoch, in bf16, with
              --reduction none --polygon --save_checkpoint (K2 in every
              step; K3-K7 in the eval's four rows), then --eval_only
              --quant on the checkpoint (P1 in the int8 convs, K3-K6 in the
@@ -161,12 +170,13 @@ KERNEL_IDS = {"fused_db_step": "K1", "db_step_forward": "K2",
 L2_FLUSH_BYTES = 256 << 20
 FLUSH_NAME = "_l2_flush_kernel"
 # the quality phase: a small hard set at full width, the JAX report's keys
+# (the config's with the compute dtype beside the backend)
 QUALITY_TRAIN, QUALITY_TEST, QUALITY_BATCH = 32, 16, 16
 REPORT_KEYS = ["config", "train_wall_s", "eval_wall_s", "history",
                "results"]
 CONFIG_KEYS = ["eval_only", "checkpoint", "train_config", "thresh",
                "box_thresh", "unclip_ratio", "n_train", "n_test", "backend",
-               "quant", "quant_head"]
+               "compute_dtype", "quant", "quant_head"]
 
 
 # the counter a row's kernel adds to, where it is not the row's own name
@@ -780,7 +790,8 @@ def phase_db_step_kernels() -> list[dict]:
     1e-6 (the kernels' exp is the card's fast one), the bitmap exact, dP
     and dT within 1e-6 of max(1, max|g|). Bytes: K1 reads P, T and writes
     B̂ and the bitmap, 16 B a pixel; K2 forward 12 B; K2 backward reads g
-    and B̂ and writes dP and dT, 16 B."""
+    (strided: all 12 B a pixel of the output's gradient) and B̂ and
+    writes dP and dT, 24 B."""
     p, t, grad = db_step_maps()
     px = p.numel()
     rows = []
@@ -809,11 +820,15 @@ def phase_db_step_kernels() -> list[dict]:
     dp, dt = D.db_step_backward(grad, bhat)
     dp_p, dt_p = D.db_step_backward_plain(grad, bhat)
     err = max((dp - dp_p).abs().max().item(), (dt - dt_p).abs().max().item())
+    # the gradient is the last channel of the NHWC (P, T, B) output's f32
+    # gradient, at element stride 3: every 32-byte sector of that tensor
+    # holds some of it, so the card reads all 12 B a pixel of it; with B
+    # read and dP, dT written, 24 B a pixel
     rows.append(kernel_row(
         "db_step_backward", "triton", TRITON_SRC, f"{JAX_DB_STEP}:114",
         err, 1e-6 * max(1.0, grad.abs().max().item()),
         lambda: D.db_step_backward(grad, bhat),
-        lambda: D.db_step_backward_plain(grad, bhat), px * 16, px * 5))
+        lambda: D.db_step_backward_plain(grad, bhat), px * 24, px * 5))
     log(f"db step kernels ok at {TRAIN_BATCH}x1x{SIZE}x{SIZE}; the "
         f"backward's gradient has element stride "
         f"{D.uniform_stride(grad)}")
@@ -925,7 +940,7 @@ def phase_serve(workdir: str) -> tuple[dict, str, torch.Tensor, float]:
     model.reset_parameters(torch.Generator().manual_seed(SEED))
     pth = os.path.join(workdir, "dbnet_resnet18_seed.pth")
     torch.save(model.state_dict(), pth)
-    # the plain fused-head module, fp32 (TF32 off)
+    # the plain fused-head module, bf16 on the card (the default)
     handler = DBTextDetectionHandler(pth, infer_mode="flax")
     handler.initialize()
     request = [{"body": b} for b in synthetic_images()]
@@ -939,12 +954,29 @@ def phase_serve(workdir: str) -> tuple[dict, str, torch.Tensor, float]:
     log(f"serve ok: batch of {N} in box mode, boxes per image "
         f"{[len(r['boxes']) for r in result]}, launches {launches}")
 
-    quartiles = serve_stages(handler, request)
-    log(f"serve timing: {N * 1e3 / quartiles['total'][1]:.2f} img/s at batch "
-        f"{N}, fp32, 640x640 (median of 11 batches); per batch ms "
-        f"[q25, median, q75] {json.dumps(quartiles)}")
-    return (launches, pth, handler.inference(handler.preprocess(request)),
-            quartiles["forward"][1])
+    # the fp32 parity configuration beside it (TF32 off), timed in turns
+    fp32 = DBTextDetectionHandler(pth, infer_mode="flax",
+                                  dtype=torch.float32)
+    fp32.initialize()
+    batch = handler.preprocess(request)
+    preds, preds32 = handler.inference(batch), fp32.inference(batch)
+    gap = (preds - preds32).abs().mean().item()
+    if not (preds.dtype == torch.float32 and 0 < gap < 0.02):
+        raise AssertionError(f"flax bf16 maps ({preds.dtype}) vs fp32: mean "
+                             f"abs {gap}")
+    timing = {}
+    for name, h in (("bf16", handler), ("fp32", fp32), ("bf16", handler),
+                    ("fp32", fp32)):
+        timing[name] = serve_stages(h, request, reps=6)
+    for name, quartiles in timing.items():
+        log(f"serve timing ({name}): {N * 1e3 / quartiles['total'][1]:.2f} "
+            f"img/s at batch {N}, flax mode, {name}, 640x640 (median of 6 "
+            f"batches, the later of two turns); forward median "
+            f"{quartiles['forward'][1]:.3f} ms; per batch ms [q25, median, "
+            f"q75] {json.dumps(quartiles)}")
+    log(f"serve ok: flax bf16 maps against fp32 maps, mean abs {gap:.3g} "
+        f"(bound 0.02)")
+    return launches, pth, preds, timing["bf16"]["forward"][1]
 
 
 def p1_bytes(fn) -> int:
@@ -1042,7 +1074,7 @@ def phase_quant(pth: str, flax_forward_ms: float) -> dict:
             f"{N * 1e3 / quartiles['total'][1]:.2f} img/s at batch {N}, "
             f"640x640, float convs bf16 (median of 11 batches); forward "
             f"median {quartiles['forward'][1]:.3f} ms against the flax "
-            f"mode's {flax_forward_ms:.3f} ms (fp32); per batch ms [q25, "
+            f"mode's {flax_forward_ms:.3f} ms (bf16); per batch ms [q25, "
             f"median, q75] {json.dumps(quartiles)}")
     # where a box-mode forward's time goes on the card, in each mode
     batch_u8 = handlers["int8"].preprocess(request)
@@ -1241,14 +1273,16 @@ def phase_check(pth: str) -> None:
     log(f"check ok: rect scene 3 boxes, corners within {gap:.3f} px of the "
         f"host; speckle scene {n_host} boxes on both paths")
 
-    # the model on the card against the same weights on the CPU; fp32 with
-    # TF32 off, so only summation order differs
+    # the model on the card against the same weights on the CPU, both in
+    # the fp32 parity configuration (TF32 off), so only summation order
+    # differs
     from db_text_minimal_tpu_torch.cli.common import load_model
 
     x = torch.from_numpy(np.random.RandomState(SEED).rand(2, 64, 64, 3)
                          .astype(np.float32) * 2 - 1)
     with torch.inference_mode():
-        on_card = load_model(pth, fuse_head=True)(x.to(dev)).cpu()
+        on_card = load_model(pth, fuse_head=True,
+                             dtype=torch.float32)(x.to(dev)).cpu()
         on_cpu = load_model(pth, device="cpu", fuse_head=True)(x)
     err = (on_card - on_cpu).abs().max().item()
     if not (torch.isfinite(on_card).all() and err < 1e-4):
@@ -1301,20 +1335,27 @@ def phase_check_polygon() -> None:
         f"{errs} at {SIZE} and 100 wide")
 
 
-def train_config(workdir: str, size: int, batch: int, device: str):
+def train_config(workdir: str, size: int, batch: int, device: str,
+                 dtype: str = "bfloat16"):
     cfg = default_config()
     cfg.meta.device = device
     cfg.meta.root_dir = workdir
     cfg.hps.img_size = size
     cfg.hps.batch_size = batch
     cfg.logging.logger_file = None
+    cfg.parallel.compute_dtype = dtype
     return cfg
 
 
-def phase_train(workdir: str) -> dict:
-    cfg = train_config(workdir, SIZE, TRAIN_BATCH, "cuda")
+def train_run(workdir: str, batch_size: int, dtype: str):
+    """TRAIN_STEPS steps of Trainer.train_epoch at SIZE x SIZE on one
+    synthetic batch of ``batch_size``, in ``dtype`` (the config's
+    ``parallel.compute_dtype``), then three more under the profiler. K2's
+    counts are set to 0 before the epoch and read after it. Returns (K2
+    launches, trainer, state)."""
+    cfg = train_config(workdir, SIZE, batch_size, "cuda", dtype)
     cfg.metric.is_output_polygon = False     # rect-mode eval, on K3-K6
-    batch = text_batch(SEED, TRAIN_BATCH, SIZE)
+    batch = text_batch(SEED, batch_size, SIZE)
     events = []
 
     def loader():
@@ -1328,6 +1369,10 @@ def phase_train(workdir: str) -> dict:
     tests = [text_batch(SEED + 1 + i, 1, SIZE) for i in range(2)]
     trainer = T.Trainer(cfg, loader(), tests)
     state = trainer.init_state()
+    want = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    if state.model.compute_dtype != want:
+        raise AssertionError(f"{dtype}: the model computes in "
+                             f"{state.model.compute_dtype}")
     D.reset_launches()
     state, _, _, _ = trainer.train_epoch(state, 0)
     events.append(torch.cuda.Event(enable_timing=True))
@@ -1336,25 +1381,26 @@ def phase_train(workdir: str) -> dict:
     launches = dict(D.LAUNCHES)
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     totals = [row["total_loss"] for row in trainer.loss_log]
+    what = f"train ({dtype}, batch {batch_size})"
     if not all(np.isfinite(v) for row in trainer.loss_log
                for v in row.values()):
-        raise AssertionError(f"a loss is not finite: {trainer.loss_log}")
+        raise AssertionError(f"{what}: a loss is not finite: "
+                             f"{trainer.loss_log}")
     if len(totals) != TRAIN_STEPS or not np.mean(totals[-3:]) < totals[0]:
-        raise AssertionError(f"the loss did not fall: {totals}")
+        raise AssertionError(f"{what}: the loss did not fall: {totals}")
     if not (launches["db_step_forward"] == launches["db_step_backward"]
             == TRAIN_STEPS and launches["fused_db_step"] == 0):
-        raise AssertionError(f"K2 launches {launches} in {TRAIN_STEPS} "
-                             f"steps")
+        raise AssertionError(f"{what}: K2 launches {launches} in "
+                             f"{TRAIN_STEPS} steps")
     q25, med, q75 = (float(q) for q in np.percentile(step_ms[2:],
                                                      [25, 50, 75]))
-    log(f"train ok: {TRAIN_STEPS} steps of batch {TRAIN_BATCH} at "
-        f"{SIZE}x{SIZE}, total loss {totals[0]:.4f} -> "
-        f"{np.mean(totals[-3:]):.4f} (mean of the last 3); K2 launches "
-        f"{launches['db_step_forward']} forward, "
+    log(f"{what} ok: {TRAIN_STEPS} steps at {SIZE}x{SIZE}, total loss "
+        f"{totals[0]:.4f} -> {np.mean(totals[-3:]):.4f} (mean of the last "
+        f"3); K2 launches {launches['db_step_forward']} forward, "
         f"{launches['db_step_backward']} backward")
-    log(f"train timing: ms per step over the last 10 steps [q25, median, "
+    log(f"{what} timing: ms per step over the last 10 steps [q25, median, "
         f"q75] [{q25:.3f}, {med:.3f}, {q75:.3f}], "
-        f"{TRAIN_BATCH * 1e3 / med:.2f} img/s; all steps ms "
+        f"{batch_size * 1e3 / med:.2f} img/s; all steps ms "
         f"{json.dumps([round(v, 3) for v in step_ms])}")
 
     # three more steps under the profiler: the card's busy time per step
@@ -1365,12 +1411,25 @@ def phase_train(workdir: str) -> dict:
         lambda: step(state, device_batch, LR), 3)
     k2_ms = sum(v for k, v in by_name.items() if "_db_step_" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"train profile: the card busy {busy_ms:.3f} ms per step "
+    log(f"{what} profile: the card busy {busy_ms:.3f} ms per step "
         f"({100 * busy_ms / med:.2f} % of the median step; idle "
         f"{100 * (1 - busy_ms / med):.2f} %); K2 forward + backward "
         f"{k2_ms:.4f} ms = {100 * k2_ms / med:.4f} % of the step; top "
         f"kernels ms per step "
         f"{json.dumps({k[:60]: round(v, 4) for k, v in top})}")
+    return launches, trainer, state
+
+
+def phase_train(workdir: str) -> dict:
+    """The default configuration (bf16) at batch 4 is the main path, whose
+    K2 launches the kernels line reports and whose state the evals below
+    take; then fp32 at batch 4 and both at batch 16, for their times."""
+    launches, trainer, state = train_run(workdir, TRAIN_BATCH, "bfloat16")
+    for batch_size, dtype in ((TRAIN_BATCH, "float32"),
+                              (QUALITY_BATCH, "bfloat16"),
+                              (QUALITY_BATCH, "float32")):
+        train_run(workdir, batch_size, dtype)
+    tests = trainer.test_loader
 
     cc.reset_launches()
     test_loss, _, recall, precision, hmean = trainer.eval_epoch(state)
@@ -1442,20 +1501,30 @@ def check_report(what: str, report: dict, rows: tuple) -> None:
 def phase_quality(workdir: str) -> dict:
     """The quality bench end to end at full width: a small hard set from
     the port's generator (QUALITY_TRAIN + QUALITY_TEST images at 640x640,
-    seed 7), ``quality_bench.main`` for one epoch at batch 16 with
+    seed 7) under the committed trace of cv2 5.0.0's text engine, which
+    holds each image's GT to the trace's hash (the first 48 images of the
+    committed benchmark's stream), ``quality_bench.main`` for one epoch at
+    batch 16, in bf16, with
     ``--reduction none --polygon --save_checkpoint`` (K2 in every step,
     K3-K7 in the eval's rows), then ``--eval_only --quant`` on that
     checkpoint (P1 in every int8 conv, K3-K6 in the device row). The
     counts are set to 0 before each run and read after it. Also the host
     ms of a training sample (decode, augment, labels) on one thread."""
+    import cv2
+
+    from db_text_minimal_tpu_torch.cli.record_text_engine import TRACE
     from db_text_minimal_tpu_torch.data import TotalTextDataset
     from db_text_minimal_tpu_torch.data.synthetic import generate_hard
+    from db_text_minimal_tpu_torch.data.text_engine import ReplayTextEngine
 
     t_phase = t0 = time.perf_counter()
     data_dir = os.path.join(workdir, "hard")
+    engine = ReplayTextEngine(TRACE)
     section = generate_hard(data_dir, n_train=QUALITY_TRAIN,
-                            n_test=QUALITY_TEST, seed=7)
+                            n_test=QUALITY_TEST, seed=7, text_engine=engine)
     gen_s = time.perf_counter() - t0
+    if engine.images != QUALITY_TRAIN + QUALITY_TEST:
+        raise AssertionError(f"quality: {engine.images} images replayed")
     dataset = TotalTextDataset(section["train_dir"], section["train_gt_dir"],
                                ["###"], compact_dtypes=True)
     t0 = time.perf_counter()
@@ -1481,6 +1550,9 @@ def phase_quality(workdir: str) -> dict:
     check_launches(launches, RECT_PATH + POLY_PATH, "quality bench")
     check_report("quality bench", report,
                  ("host", "device", "host_poly", "device_poly"))
+    if report["config"]["compute_dtype"] != "bfloat16":
+        raise AssertionError(f"quality: trained in "
+                             f"{report['config']['compute_dtype']}")
 
     reset_all_launches()
     report_q = quality_bench.main(quality_bench.load_args(common + [
@@ -1508,7 +1580,11 @@ def phase_quality(workdir: str) -> dict:
                    ("int8 host", report_q, "host"),
                    ("int8 device", report_q, "device"))}
     log(f"quality ok: {QUALITY_TRAIN} train and {QUALITY_TEST} test images "
-        f"of generate_hard at 640x640 made in {gen_s:.2f} s; one epoch of "
+        f"of generate_hard at 640x640 made in {gen_s:.2f} s by replaying "
+        f"the committed text-engine trace (recorded under cv2 "
+        f"{engine.header['cv2']}; here cv2 {cv2.__version__}): every GT "
+        f"equal to the trace's, {engine.pixels_equal} of "
+        f"{engine.images} images with the recorded pixels; one epoch of "
         f"{steps} steps at batch {QUALITY_BATCH}, train_wall_s "
         f"{report['train_wall_s']}, eval_wall_s {report['eval_wall_s']}, "
         f"int8 eval_wall_s {report_q['eval_wall_s']}; the epoch "
@@ -1530,7 +1606,8 @@ def check_prf(what, loss, precision, recall, hmean) -> None:
 
 def phase_check_train(workdir: str) -> None:
     """One train step at 128², batch 2, on the card and on the CPU from the
-    same seeded weights and batch, under both OHEM reductions: the five
+    same seeded weights and batch, in the fp32 parity configuration, under
+    both OHEM reductions: the five
     losses at rtol 1e-4, the BN statistics at atol 1e-5 + rtol 1e-4, and
     each gradient within a share of its leaf's max |g| (at least 1). cuDNN's
     and the CPU's f32 convolutions differ by ~1e-5 in P - T, which B̂ =
@@ -1542,7 +1619,7 @@ def phase_check_train(workdir: str) -> None:
     for reduction, grad_tol in (("mean", 1e-3), ("none", 2e-2)):
         results = []
         for device in ("cuda", "cpu"):
-            cfg = train_config(workdir, 128, 2, device)
+            cfg = train_config(workdir, 128, 2, device, "float32")
             cfg.optimizer.reduction = reduction
             state = T.Trainer(cfg).init_state()
             state, loss, _, _ = T.build_train_step(cfg)(

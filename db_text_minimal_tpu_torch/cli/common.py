@@ -25,6 +25,13 @@ from ..utils import resolve_device
 INFER_MODES = ("flax", "folded", "int8")
 
 
+def default_dtype(device: torch.device) -> torch.dtype:
+    """The plain model's compute dtype when none is asked for: bfloat16 on
+    CUDA, float32 on the CPU (JAX ``common.py:30-32``, with CUDA in its
+    accelerator's place)."""
+    return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
 def _fp32_convolutions() -> None:
     """cuDNN runs float32 convolutions in TF32 unless told otherwise, which
     keeps only ~3 decimal digits; the entry points turn it off."""
@@ -44,28 +51,33 @@ def load_state_dict(model_path: str, fuse_head: bool = False) -> dict:
 
 
 def load_model(model_path: str, device="cuda", backbone: str = "resnet18",
-               head: str = "DBHead", fuse_head: bool = False) -> DBTextModel:
+               head: str = "DBHead", fuse_head: bool = False,
+               dtype: torch.dtype | None = None) -> DBTextModel:
     """Build the detector on ``device``, load a ``.pth`` into it and return
     it in eval mode. ``fuse_head=True`` rewrites a ``DBHead`` checkpoint
     into the weight-equivalent ``FusedDBHead`` inference layout. The default
     device is CUDA; on a machine without a GPU, ``device="cpu"`` must be
     passed.
 
-    The model runs in the fp32 parity configuration: convolutions and
-    matmuls in full float32 (TF32 off for the process)."""
+    ``dtype`` is the compute dtype (``DBTextModel.compute_dtype``); by
+    default bfloat16 on CUDA and float32 on the CPU (``default_dtype``).
+    ``torch.float32`` is the parity configuration: convolutions and matmuls
+    in full float32 (TF32 off for the process)."""
     device = resolve_device(device)
     _fp32_convolutions()
     state_dict = load_state_dict(model_path, fuse_head and head == "DBHead")
     if fuse_head and head == "DBHead":
         head = "FusedDBHead"
-    model = DBTextModel(backbone_name=backbone, head_name=head)
+    model = DBTextModel(backbone_name=backbone, head_name=head,
+                        compute_dtype=dtype or default_dtype(device))
     model.load_state_dict(state_dict, strict=True)
     return model.to(device).eval()
 
 
 def make_forward(model: DBTextModel):
     """``forward(x)``: a float32 NHWC numpy batch -> the eval mode's NHWC
-    prob and threshold maps, on the model's device."""
+    prob and threshold maps (float32 in every compute dtype), on the
+    model's device."""
     device = next(model.parameters()).device
 
     @torch.inference_mode()
@@ -112,7 +124,8 @@ def build_inference_forward(model_path: str, backbone: str = "resnet18",
                             device="cuda"):
     """What the CLIs infer with: (model or folded tree, forward), where
     ``forward`` maps a float32 NHWC numpy batch to NHWC maps on ``device``.
-    ``infer_mode="flax"`` is the plain module (both maps); ``"folded"`` and
+    ``infer_mode="flax"`` is the plain module (both maps; bfloat16 on CUDA,
+    float32 on the CPU, as ``load_model``); ``"folded"`` and
     ``"int8"`` the BN-folded forward, int8 with dynamic scales (flagship
     resnet18 + FPN only), which with ``prob_only`` return (N, H, W, 1), all
     the detection postprocess reads."""

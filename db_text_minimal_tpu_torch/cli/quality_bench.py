@@ -7,9 +7,12 @@ Port of ``db_text_minimal_tpu/cli/quality_bench.py``: ``load_args``,
 ``build_cfg``, ``_limit``, ``make_quant_forward`` (the int8 forward of
 ``--quant``), ``full_eval``, ``warn_ctw_polygon_operating_point`` and
 ``main``. The report has the JAX report's keys; ``config.backend`` is the
-torch device's type (``"cuda"``), and each ``history`` entry also holds the
-epoch's wall seconds, the seconds the step waited on the loader and the
-mean host ms of a sample in a loader thread. The JAX debug flag
+torch device's type (``"cuda"``), ``config.compute_dtype`` beside it the
+model's (``"bfloat16"`` on CUDA under the default configuration, as the JAX
+package on its accelerator; ``"float32"`` on the CPU), and each
+``history`` entry also holds the epoch's wall seconds, the seconds the
+step waited on the loader and the mean host ms of a sample in a loader
+thread. The JAX debug flag
 ``--dump_eval_dir`` is not ported.
 
 Usage::
@@ -369,6 +372,8 @@ def main(args=None):
             "unclip_ratio": args.unclip_ratio,
             "n_train": len(train_ds), "n_test": len(test_ds),
             "backend": trainer.device.type,
+            "compute_dtype": str(trainer.compute_dtype).removeprefix(
+                "torch."),
             "quant": bool(args.quant), "quant_head": bool(args.quant_head),
         },
         "train_wall_s": round(train_wall, 1),

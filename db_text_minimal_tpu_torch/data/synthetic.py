@@ -7,7 +7,9 @@ glyphs are cv2's Hershey fonts, so no font file is needed): ``generate``
 ignore-tagged words over text-like clutter) and ``generate_hard_ctw`` (its
 line-level CTW1500 form). Every draw from the ``RandomState`` happens in the
 JAX module's order and every label is written with ``{v:.1f}``, so a seed
-gives the same images and GT files as the JAX package. The glyph dataset
+gives the same images and GT files as the JAX package. The glyphs are
+measured and drawn through a text engine object (``data.text_engine``),
+cv2's own unless a recorded one is given. The glyph dataset
 and word crops of the recognizer wait for ROADMAP queue 1 item 5.
 """
 
@@ -16,6 +18,10 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from .text_engine import CV2TextEngine
+
+CV2_TEXT = CV2TextEngine()
 
 
 def _curved_word_poly(rng, size, w, h):
@@ -111,23 +117,23 @@ def _paste_patch(img, patch, mask, x, y):
     return True
 
 
-def _glyph_patch(rng, text, font_scale, color, thickness=None):
+def _glyph_patch(rng, text, font_scale, color, thickness=None,
+                 engine=CV2_TEXT):
     """Render ``text`` on a tight patch; returns (bgr patch, alpha mask)."""
     import cv2
 
     thickness = thickness or max(1, 1 + int(font_scale))
-    font = rng.choice([cv2.FONT_HERSHEY_SIMPLEX, cv2.FONT_HERSHEY_DUPLEX,
-                       cv2.FONT_HERSHEY_COMPLEX_SMALL])
-    (tw, th), baseline = cv2.getTextSize(text, font, font_scale, thickness)
+    font = int(rng.choice([cv2.FONT_HERSHEY_SIMPLEX, cv2.FONT_HERSHEY_DUPLEX,
+                           cv2.FONT_HERSHEY_COMPLEX_SMALL]))
+    (tw, th), baseline = engine.text_size(text, font, font_scale, thickness)
     m = 3
-    patch = np.zeros((th + baseline + 2 * m, tw + 2 * m, 3), np.uint8)
-    mask = np.zeros(patch.shape[:2], np.uint8)
-    cv2.putText(patch, text, (m, m + th), font, font_scale, color, thickness)
-    cv2.putText(mask, text, (m, m + th), font, font_scale, 255, thickness)
+    patch, mask = engine.draw((th + baseline + 2 * m, tw + 2 * m), text,
+                              (m, m + th), font, font_scale, color,
+                              thickness)
     return patch, (mask > 0).astype(np.uint8)
 
 
-def _rotated_word(rng, img, occupied, size, small=False):
+def _rotated_word(rng, img, occupied, size, small=False, engine=CV2_TEXT):
     """Paste a word rotated by up to ±50°; returns (poly, text) or None."""
     import cv2
 
@@ -137,7 +143,8 @@ def _rotated_word(rng, img, occupied, size, small=False):
     dark = rng.rand() < 0.7
     color = tuple(int(v) for v in (rng.randint(0, 50, 3) if dark
                                    else rng.randint(200, 255, 3)))
-    patch, mask = _glyph_patch(rng, text, font_scale, color)
+    patch, mask = _glyph_patch(rng, text, font_scale, color,
+                               engine=engine)
     angle = rng.uniform(-50, 50)
     ph, pw = patch.shape[:2]
     rot = cv2.getRotationMatrix2D((pw / 2, ph / 2), angle, 1.0)
@@ -162,7 +169,7 @@ def _rotated_word(rng, img, occupied, size, small=False):
     return np.clip(poly, 0, size - 1), text
 
 
-def _curved_word(rng, img, occupied, size):
+def _curved_word(rng, img, occupied, size, engine=CV2_TEXT):
     """Real glyphs along a bent baseline with per-char tangent rotation;
     GT is a CTW1500-style 14-point polygon (7 top + 7 bottom)."""
     import cv2
@@ -174,8 +181,8 @@ def _curved_word(rng, img, occupied, size):
     dark = rng.rand() < 0.7
     color = tuple(int(v) for v in (rng.randint(0, 50, 3) if dark
                                    else rng.randint(200, 255, 3)))
-    (tw, th), _ = cv2.getTextSize(text, cv2.FONT_HERSHEY_SIMPLEX,
-                                  font_scale, thickness)
+    (tw, th), _ = engine.text_size(text, cv2.FONT_HERSHEY_SIMPLEX,
+                                   font_scale, thickness)
     length = int(tw * 1.15)
     amp = rng.uniform(0.25, 0.9) * th * 2 * rng.choice([-1, 1])
     if length >= size - 40:
@@ -199,7 +206,8 @@ def _curved_word(rng, img, occupied, size):
         # tangent angle of the baseline (image y points down)
         dy = amp * np.pi * np.cos(t * np.pi) / length
         ang = -np.degrees(np.arctan2(dy, 1.0))
-        patch, mask = _glyph_patch(rng, ch, font_scale, color, thickness)
+        patch, mask = _glyph_patch(rng, ch, font_scale, color, thickness,
+                                   engine)
         ph, pw = patch.shape[:2]
         rot = cv2.getRotationMatrix2D((pw / 2, ph / 2), ang, 1.0)
         rpatch = cv2.warpAffine(patch, rot, (pw, ph))
@@ -279,9 +287,10 @@ def _hard_background(rng, size):
     return img
 
 
-def _render_hard_sample(rng, size=640, max_words=8):
+def _render_hard_sample(rng, size=640, max_words=8, engine=CV2_TEXT):
     """One benchmark scene: rotated + curved + small + ignore-tagged words
-    over distractor clutter. Returns (img, [(poly, text, ignore)])."""
+    over distractor clutter, the glyphs from the text engine ``engine``.
+    Returns (img, [(poly, text, ignore)])."""
     img = _hard_background(rng, size)
     occupied: list = []
     words = []
@@ -291,11 +300,13 @@ def _render_hard_sample(rng, size=640, max_words=8):
         tries += 1
         r = rng.rand()
         if r < 0.3:
-            res = _curved_word(rng, img, occupied, size)
+            res = _curved_word(rng, img, occupied, size, engine)
         elif r < 0.55:
-            res = _rotated_word(rng, img, occupied, size, small=True)
+            res = _rotated_word(rng, img, occupied, size, small=True,
+                                engine=engine)
         else:
-            res = _rotated_word(rng, img, occupied, size, small=False)
+            res = _rotated_word(rng, img, occupied, size, small=False,
+                                engine=engine)
         if res is None:
             continue
         poly, text = res
@@ -341,23 +352,31 @@ def _write_dataset(out_dir: str, n_train: int, n_test: int,
 
 
 def generate_hard(out_dir: str, n_train: int = 1600, n_test: int = 400,
-                  size: int = 640, seed: int = 7) -> dict:
+                  size: int = 640, seed: int = 7,
+                  text_engine=None) -> dict:
     """The hard benchmark in TotalText format: curved CTW-style words,
     rotations to +-50 degrees, small text, '###' ignore tags and text-like
-    distractors. The same ``seed`` gives the same images, so the committed
-    GT pickles of ``demo/hard_bench`` (1600/400 at seed 7) stand for it."""
+    distractors. The same ``seed`` gives the same images under one cv2, so
+    the committed GT pickles of ``demo/hard_bench`` (1600/400 at seed 7,
+    cv2 5.0.0) stand for it. ``text_engine`` measures and draws the glyphs
+    (``data.text_engine``; cv2's own by default) and sees every image
+    before its encode; a ``ReplayTextEngine`` of the committed trace makes
+    that GT under any cv2."""
     rng = np.random.RandomState(seed)
+    engine = text_engine or CV2_TEXT
 
     def sample():
-        img, words = _render_hard_sample(rng, size=size)
-        return img, [f"{_coords(poly)},{text}" for poly, text in words]
+        img, words = _render_hard_sample(rng, size=size, engine=engine)
+        lines = [f"{_coords(poly)},{text}" for poly, text in words]
+        engine.end_image(img, lines)
+        return img, lines
 
     dirs = _write_dataset(out_dir, n_train, n_test, 100000, sample,
                           "gt_img{}.txt")
     return {**dirs, "ignore_tags": ["###"]}
 
 
-def _ctw_line(rng, img, occupied, size):
+def _ctw_line(rng, img, occupied, size, engine=CV2_TEXT):
     """One text line (1 to 3 words) along a straight to strongly bent
     baseline, glyph by glyph with the tangent's rotation; its GT is the
     CTW1500 14-point line polygon (7 top, 7 bottom), what the reference's
@@ -373,8 +392,8 @@ def _ctw_line(rng, img, occupied, size):
     dark = rng.rand() < 0.7
     color = tuple(int(v) for v in (rng.randint(0, 50, 3) if dark
                                    else rng.randint(200, 255, 3)))
-    (tw, th), _ = cv2.getTextSize(text, cv2.FONT_HERSHEY_SIMPLEX,
-                                  font_scale, thickness)
+    (tw, th), _ = engine.text_size(text, cv2.FONT_HERSHEY_SIMPLEX,
+                                   font_scale, thickness)
     length = int(tw * 1.1)
     # half the lines are straight / nearly straight, half bent
     amp = (rng.uniform(0.0, 0.25) if rng.rand() < 0.5
@@ -401,7 +420,8 @@ def _ctw_line(rng, img, occupied, size):
         cx, cy = base(t)
         dy = amp * np.pi * np.cos(t * np.pi) / length
         ang = -np.degrees(np.arctan2(dy, 1.0))
-        patch, mask = _glyph_patch(rng, ch, font_scale, color, thickness)
+        patch, mask = _glyph_patch(rng, ch, font_scale, color, thickness,
+                                   engine)
         ph, pw = patch.shape[:2]
         rot = cv2.getRotationMatrix2D((pw / 2, ph / 2), ang, 1.0)
         rpatch = cv2.warpAffine(patch, rot, (pw, ph))

@@ -3,7 +3,9 @@
 Counterpart of ``db_text_minimal_tpu/models/fpn.py::FPN``: 1×1 reduce convs
 to inner/4 channels, nearest-upsample top-down adds, 3×3 smooth convs,
 upsample-all-and-concat at p2 scale, then a final 3×3 conv + BN + relu kept
-as the ``nn.Sequential`` ``conv`` (keys ``conv.0``/``conv.1``).
+as the ``nn.Sequential`` ``conv`` (keys ``conv.0``/``conv.1``). Convs
+compute in their ``compute_dtype``, BNs in float32 (``layers``), so every
+add and concat here is float32, as in flax.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import ConvBnRelu, batch_norm, resize_nearest
+from .layers import Conv2d, ConvBnRelu, batch_norm, resize_nearest
 
 
 class FPN(nn.Module):
@@ -28,7 +30,7 @@ class FPN(nn.Module):
         self.smooth_p3 = ConvBnRelu(inner, inner, 3, padding=1)
         self.smooth_p2 = ConvBnRelu(inner, inner, 3, padding=1)
         self.conv = nn.Sequential(
-            nn.Conv2d(inner * 4, inner_channels, 3, padding=1),
+            Conv2d(inner * 4, inner_channels, 3, padding=1),
             batch_norm(inner_channels), nn.ReLU(inplace=True))
         self.out_channels = inner_channels
 

@@ -10,6 +10,12 @@ inference form and refuses train mode, as the JAX version asserts.
 
 In train mode ``DBHead`` returns (P, T, B̂) with B̂ = σ(k(P − T)) through
 kernel K2 (``ops.db_step.db_step``, head.py:76-84).
+
+In a bfloat16 model (``layers``) the convs and deconvs compute in bfloat16
+and the BNs in float32; the last deconv's bfloat16 output goes to a float32
+sigmoid (JAX head.py:57,121), so P and T, and K2's inputs and output, are
+float32 in every compute dtype: ``ops.db_step`` and its Triton kernels see
+the maps they saw in float32.
 """
 
 from __future__ import annotations
@@ -19,16 +25,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.db_step import db_step
-from .layers import batch_norm
+from .layers import Conv2d, ConvTranspose2d, Sigmoid32, batch_norm
 
 
 def _branch(channels: int, width: int, first_bias: bool) -> nn.Sequential:
     return nn.Sequential(
-        nn.Conv2d(channels, width, 3, padding=1, bias=first_bias),
+        Conv2d(channels, width, 3, padding=1, bias=first_bias),
         batch_norm(width), nn.ReLU(inplace=True),
-        nn.ConvTranspose2d(width, width, 2, stride=2),
+        ConvTranspose2d(width, width, 2, stride=2),
         batch_norm(width), nn.ReLU(inplace=True),
-        nn.ConvTranspose2d(width, 1, 2, stride=2), nn.Sigmoid())
+        ConvTranspose2d(width, 1, 2, stride=2), Sigmoid32())
 
 
 class DBHead(nn.Module):
@@ -59,19 +65,19 @@ class FusedDBHead(nn.Module):
     def __init__(self, in_channels: int = 256):
         super().__init__()
         width = in_channels // 4
-        self.conv1 = nn.Conv2d(in_channels, 2 * width, 3, padding=1)
+        self.conv1 = Conv2d(in_channels, 2 * width, 3, padding=1)
         self.bn1 = batch_norm(2 * width)
         for name in ("binarize", "thresh"):
             setattr(self, f"{name}_deconv1",
-                    nn.ConvTranspose2d(width, width, 2, stride=2))
+                    ConvTranspose2d(width, width, 2, stride=2))
             setattr(self, f"{name}_bn2", batch_norm(width))
             setattr(self, f"{name}_deconv2",
-                    nn.ConvTranspose2d(width, 1, 2, stride=2))
+                    ConvTranspose2d(width, 1, 2, stride=2))
 
     def _tail(self, z, name):
         z = getattr(self, f"{name}_deconv1")(z)
         z = F.relu(getattr(self, f"{name}_bn2")(z))
-        return torch.sigmoid(getattr(self, f"{name}_deconv2")(z))
+        return torch.sigmoid(getattr(self, f"{name}_deconv2")(z).float())
 
     def forward(self, x):
         if self.training:

@@ -4,6 +4,13 @@ Counterpart of ``db_text_minimal_tpu/models/layers.py``. Modules work in
 NCHW inside; the model's public functions keep the JAX package's NHWC.
 Batch norm: flax ``momentum=0.9`` is torch ``momentum=0.1``, eps 1e-5, and
 in train mode flax's running-statistics rule (see ``BatchNorm2d``).
+
+Compute dtype, as flax's ``dtype`` field: ``Conv2d`` and
+``ConvTranspose2d`` cast their input, weight and bias to their
+``compute_dtype`` (float32 unless ``DBTextModel`` sets bfloat16) and hand
+their output on in it; ``BatchNorm2d`` computes in float32 and hands float32
+on, as every flax BN of the model does (``dtype=jnp.float32``). Parameters,
+buffers and gradients stay float32. In float32 every cast is a no-op.
 """
 
 from __future__ import annotations
@@ -23,9 +30,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     momentum 0.1 towards the batch mean and the **biased** variance, as
     flax's ``BatchNorm`` does; ``nn.BatchNorm2d`` would take the unbiased
     one, n/(n−1) larger. Eval mode is ``nn.BatchNorm2d``'s. The state_dict
-    keys are ``nn.BatchNorm2d``'s."""
+    keys are ``nn.BatchNorm2d``'s. A bfloat16 input is taken to float32
+    first, and the output is float32."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
         if not self.training:
             return super().forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
@@ -38,6 +47,50 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+def _add_bias(y: torch.Tensor, bias, dtype: torch.dtype) -> torch.Tensor:
+    # flax adds the bias to the rounded conv output, in the compute dtype
+    return y if bias is None else y + bias.to(dtype)[:, None, None]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in ``compute_dtype`` (flax ``nn.Conv(dtype=...)``):
+    the input and weight cast to it, the output in it, the bias cast to it
+    and added after the conv as flax adds it. In float32, ``nn.Conv2d``."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == self.weight.dtype:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return _add_bias(y, self.bias, dt)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in ``compute_dtype`` (flax
+    ``nn.ConvTranspose(dtype=...)``), as ``Conv2d``."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == self.weight.dtype:
+            return super().forward(x)
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
+                               self.stride, self.padding, self.output_padding,
+                               self.groups, self.dilation)
+        return _add_bias(y, self.bias, dt)
+
+
+class Sigmoid32(nn.Module):
+    """σ in float32 of a map in any dtype, as the flax head's
+    ``nn.sigmoid(x.astype(jnp.float32))``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(x.float())
+
+
 def batch_norm(channels: int) -> BatchNorm2d:
     return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
@@ -48,8 +101,8 @@ class ConvBnRelu(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int, padding: int = 0):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              padding=padding)
+        self.conv = Conv2d(in_channels, out_channels, kernel_size,
+                           padding=padding)
         self.bn = batch_norm(out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

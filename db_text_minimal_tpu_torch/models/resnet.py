@@ -4,7 +4,9 @@ Counterpart of ``db_text_minimal_tpu/models/resnet.py`` (``BasicBlock`` and
 the stem: 7×7/2 conv with pad 3, BN, relu, 3×3/2 max pool). Parameter names
 follow the reference's torchvision layout (``layer1.0.conv1``,
 ``layer2.0.downsample.0``), which ``weights.state_dict_from_jax`` produces.
-The reference's unused ``smooth``/``avgpool``/``fc`` are left out.
+The reference's unused ``smooth``/``avgpool``/``fc`` are left out. Each
+conv computes in its ``compute_dtype`` and each BN in float32 (see
+``layers``), so in bfloat16 c2..c5 are float32, as in flax.
 """
 
 from __future__ import annotations
@@ -12,12 +14,12 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import batch_norm, max_pool_3x3_s2
+from .layers import Conv2d, batch_norm, max_pool_3x3_s2
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride,
-                     padding=(kernel - 1) // 2, bias=False)
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride=stride,
+                  padding=(kernel - 1) // 2, bias=False)
 
 
 class BasicBlock(nn.Module):
@@ -44,7 +46,7 @@ class BasicBlock(nn.Module):
 class ResNet(nn.Module):
     def __init__(self, layers=(2, 2, 2, 2)):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = batch_norm(64)
         in_planes = 64
         for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512),

@@ -11,7 +11,8 @@ postprocess; only K box records per image leave the device).
 ``"folded"`` (the default) the weight-exact BN-folded forward, ``"int8"``
 that with the wide convs int8 at dynamic scales, the fused head's conv1
 included (``models/quant_infer``; flagship resnet18 + FPN only), ``"flax"``
-the plain fused-head module. The folded modes serve box mode through the
+the plain fused-head module, in ``dtype`` (by default bfloat16 on CUDA and
+float32 on the CPU, as ``cli.common.load_model``). The folded modes serve box mode through the
 prob-only forward (the thresh branch is skipped) and the masks modes
 through the two-map one.
 """
@@ -33,16 +34,18 @@ from ..utils import CAFFE_MEAN, resolve_device, test_resize
 
 class DBTextDetectionHandler:
     def __init__(self, model_path: str, infer_mode: str = "folded",
-                 device="cuda"):
+                 device="cuda", dtype: torch.dtype | None = None):
         """The model is loaded from ``model_path`` at the first request (or
         by ``initialize``). The default device is CUDA; on a machine without
-        a GPU, ``device="cpu"`` must be passed."""
+        a GPU, ``device="cpu"`` must be passed. ``dtype`` is the flax
+        mode's compute dtype (``load_model``'s default when None)."""
         if infer_mode not in INFER_MODES:
             raise ValueError(f"infer_mode {infer_mode!r} is not one of "
                              f"{INFER_MODES}")
         self.device = resolve_device(device)
         self.model_path = model_path
         self.infer_mode = infer_mode
+        self.dtype = dtype
         self.box_representer = DeviceBoxRepresenter()
         self._forward = None
         self._forward_prob = None   # prob-only forward for box mode
@@ -53,7 +56,7 @@ class DBTextDetectionHandler:
                             device=self.device)
         if self.infer_mode == "flax":
             maps = load_model(self.model_path, device=self.device,
-                              fuse_head=True)
+                              fuse_head=True, dtype=self.dtype)
             prob = None
         else:
             maps = make_folded_forward(

@@ -18,10 +18,13 @@ Port of ``db_text_minimal_tpu/train/trainer.py`` for one card:
 
 Losses and histograms stay on the device between log points: nothing is
 read back per step. Scalars are logged every ``hps.log_iter`` steps and kept
-in ``Trainer.loss_log``. The model trains in fp32 with TF32 off for cuDNN
-and matmul, the JAX trainer's precision off the TPU; the ``Trainer``
-constructor sets both flags for the process. The JAX ``parallel`` mesh
-section is ignored on one card.
+in ``Trainer.loss_log``. The model computes in ``compute_dtype(cfg,
+device)``: bfloat16 on CUDA under ``parallel.compute_dtype: bfloat16`` (the
+default), as the JAX trainer on its accelerator, with parameters, the loss
+and Adam in float32; otherwise, and always on the CPU, float32 with TF32
+off for cuDNN and matmul, the parity configuration (the ``Trainer``
+constructor sets both flags for the process). The rest of the JAX
+``parallel`` section (the mesh) is ignored on one card.
 """
 
 from __future__ import annotations
@@ -99,6 +102,17 @@ class TrainState:
     def state_dict(self) -> dict:
         return {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(), "step": self.step}
+
+
+def compute_dtype(cfg, device: torch.device) -> torch.dtype:
+    """The model's compute dtype, chosen as the JAX trainer chooses it
+    (trainer.py:219-221) with CUDA in its accelerator's place: bfloat16 when
+    ``parallel.compute_dtype`` is ``"bfloat16"`` and ``device`` is CUDA,
+    float32 otherwise."""
+    wanted = cfg.parallel.compute_dtype if cfg.parallel else None
+    if wanted == "bfloat16" and torch.device(device).type == "cuda":
+        return torch.bfloat16
+    return torch.float32
 
 
 def make_optimizer(cfg, model: torch.nn.Module) -> torch.optim.Adam:
@@ -206,6 +220,7 @@ class Trainer:
     def __init__(self, cfg: ConfigNode, train_loader=None, test_loader=None):
         self.cfg = cfg
         self.device = resolve_device(cfg.meta.device or "cuda")
+        self.compute_dtype = compute_dtype(cfg, self.device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.logger = setup_logger(
@@ -251,7 +266,8 @@ class Trainer:
         finetune checkpoint where the config names files that exist."""
         cfg = self.cfg
         model = DBTextModel(backbone_name=cfg.model.backbone or "resnet18",
-                            head_name=cfg.model.head or "DBHead")
+                            head_name=cfg.model.head or "DBHead",
+                            compute_dtype=self.compute_dtype)
         model.reset_parameters(torch.Generator().manual_seed(self.seed))
         pb = cfg.model.pretrained_backbone_path
         if pb and os.path.exists(str(pb)):

@@ -255,13 +255,20 @@ def test_hard_bench_gt_matches_the_committed_pickle(tmp_path, capsys):
     and exported by the port's ``make_eval.export_gts`` in the order of
     ``img_fns.pkl``, equals ``demo/hard_bench/result_poly_gts.pkl`` for
     all 400 images (~80 s). That GT was made with cv2 5.0.0, whose text
-    engine sizes the glyphs; another cv2 draws other words."""
+    engine sizes the glyphs; another cv2 draws other words, so under a cv2
+    other than 5.x the test replays the committed trace of cv2 5.0.0's
+    text engine (``--text_trace``), and under 5.x it generates live."""
     from argparse import Namespace
 
     from db_text_minimal_tpu_torch.cli.make_eval import export_gts
 
     data_dir = tmp_path / "hb"
-    make_synthetic.main([str(data_dir), "--hard"])
+    replay = cv2.__version__.split(".")[0] != "5"
+    trace = os.path.join(_REPO, "demo", "hard_bench_torch",
+                         "text_engine_hard_seed7.npz")
+    route = "the committed trace replayed" if replay else "live"
+    make_synthetic.main([str(data_dir), "--hard"]
+                        + (["--text_trace", trace] if replay else []))
     assert "synthetic" in capsys.readouterr().out
     bench = os.path.join(_REPO, "demo", "hard_bench")
     with open(os.path.join(bench, "img_fns.pkl"), "rb") as f:
@@ -281,7 +288,8 @@ def test_hard_bench_gt_matches_the_committed_pickle(tmp_path, capsys):
     # between cv2 versions; the committed GT was made with cv2 5.0.0
     size = cv2.getTextSize("HELLO", cv2.FONT_HERSHEY_SIMPLEX, 0.45, 1)
     assert equal == 400, (f"{equal} of 400 images equal under cv2 "
-                          f"{cv2.__version__} (HELLO at scale 0.45: {size})")
+                          f"{cv2.__version__}, {route} (HELLO at scale "
+                          f"0.45: {size})")
     assert len(os.listdir(data_dir / "train_images")) == 1600
 
 
@@ -380,16 +388,21 @@ def eval_reports(bench, tmp_path_factory):
 
 
 def test_quality_bench_report_has_the_jax_keys(bench, eval_reports):
-    """The same keys at every level of the ``--eval_only`` reports; the
-    training report the same top-level and config keys, its history
+    """The same keys at every level of the ``--eval_only`` reports (the
+    config's plus ``compute_dtype``, float32 on the CPU); the training
+    report the same top-level and config keys, its history
     entries the JAX entry's keys and the three timing keys; the
     checkpoint's sidecar read back."""
     _, train_report = bench
     ref, got, out = eval_reports
     got = got["m.ckpt"]
+    # the port's config also records the compute dtype, beside the backend
+    config_keys = list(ref["config"])
+    config_keys.insert(config_keys.index("backend") + 1, "compute_dtype")
     for report in (got, train_report):
         assert list(report) == list(ref)
-        assert list(report["config"]) == list(ref["config"])
+        assert list(report["config"]) == config_keys
+        assert report["config"]["compute_dtype"] == "float32"
     assert list(got["results"]) == list(ref["results"])
     for row in ("host", "device"):
         assert list(got["results"][row]) == list(ref["results"][row])

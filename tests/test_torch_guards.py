@@ -43,9 +43,10 @@ print(len(names))
     assert proc.returncode == 0, proc.stdout + proc.stderr
     *names, count = proc.stdout.split()
     for module in ("data.augment", "data.datasets", "data.synthetic",
-                   "cli.train", "cli.make_synthetic", "cli.quality_bench"):
+                   "data.text_engine", "cli.train", "cli.make_synthetic",
+                   "cli.quality_bench", "cli.record_text_engine"):
         assert f"db_text_minimal_tpu_torch.{module}" in names
-    assert int(count) >= 46
+    assert int(count) >= 48
 
 
 def test_port_sources_name_no_jax_import():
