@@ -50,13 +50,33 @@ Phases, one output line each (or more), stopping at the first failure:
              f32-form launches), each in box mode (K3-K6 must launch); the
              same stage timing as the serve phase for each, and each
              forward profiled. Then the quant checks (see check).
-5. polygon - the served batch's maps through DevicePolyRepresenter
+5. export  - serve/export on the same .pth at 640x640: the flax (bf16),
+             folded and int8 archives (.pt2; symbolic batch, uint8 input,
+             the folded and int8 ones prob-only), each loaded back, batch 1
+             and 8 from one archive held to the live forward of its mode
+             (at most 1 % of pixels more than 1e-3 apart) and timed
+             against it; the int8 archive launches P1 17 times a forward
+             through the custom op dbtext::int8_epilogue. The folded and
+             int8 archives then serve the batch through the handler in
+             box mode (K3-K6 launch; the folded archive's boxes within
+             2.5 px of the live folded handler's) and refuse masks mode.
+6. prune   - cli.prune on the .pth at the JAX p50 keeps (.5/.75/.5; the
+             JAX report's widths and param ratio .5048) and at odd keeps
+             (.3, 1, 130: int8 GEMMs with K and N padded to multiples of
+             8); each loaded with its sidecar by load_model and
+             build_inference_forward, folded fp32 held to the model fp32
+             (the full model's gaps beside), served folded and int8 in box
+             mode (K3-K6, P1 once per int8 conv); 3 bf16 train steps of the
+             p50 model at batch 4 (K2 each step; checkpoints with the
+             sidecar); the odd-keep int8 archive held as in export; the
+             folded forward and handle() at batch 8, full against p50.
+7. polygon - the served batch's maps through DevicePolyRepresenter
              (polygon mode, the reference's default output): every kernel
              of its device half (K3 both ways, K4 twice, K6, K7's bbox
              statistics and bit-pack) must launch. Then the device part,
              the copy to the host and the host finishing are timed on the
              served batch and on the 8 kernel scenes.
-6. train   - the training configuration of the JAX package's defaults:
+8. train   - the training configuration of the JAX package's defaults:
              resnet18 + FPN (inner 256) + DBHead in train mode, 640², batch
              4, bf16 compute with f32 parameters and loss, true per-pixel
              OHEM, Adam at lr 0.005. Twelve steps of Trainer.train_epoch on
@@ -70,7 +90,7 @@ Phases, one output line each (or more), stopping at the first failure:
              mode, on the host as in the JAX trainer) and the quality
              bench's full_eval with its four rows (host and device, rect and
              polygon; K3-K7 must launch); P, R, F lie in [0, 1].
-7. check   - device boxes against the host rect-mode SegDetectorRepresenter
+9. check   - device boxes against the host rect-mode SegDetectorRepresenter
              on synthetic scenes, device polygons against the host polygon
              mode on the kernel scenes, K7 on the card against K7 on the
              CPU, the model on the card against the same model on the CPU
@@ -80,7 +100,7 @@ Phases, one output line each (or more), stopping at the first failure:
              calibrated int8 forward on the card against the CPU (float
              convs in f64 and in f32) and its fused and unfused forms
              against each other.
-8. quality - the quality bench end to end at 640x640, batch 16: a small
+10. quality - the quality bench end to end at 640x640, batch 16: a small
              hard set from the port's generator (32 train and 16 test
              images, seed 7) with the committed trace of cv2 5.0.0's text
              engine replayed (each image's GT held to the trace's hash),
@@ -116,8 +136,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from db_text_minimal_tpu_torch.cli import prune as prune_cli
 from db_text_minimal_tpu_torch.cli import quality_bench
-from db_text_minimal_tpu_torch.cli.common import (load_state_dict,
+from db_text_minimal_tpu_torch.cli.common import (build_inference_forward,
+                                                  load_model,
+                                                  load_state_dict,
                                                   make_folded_forward)
 from db_text_minimal_tpu_torch.config import default_config
 from db_text_minimal_tpu_torch.data.scenes import text_batch
@@ -129,6 +152,8 @@ from db_text_minimal_tpu_torch.ops import int8 as I8
 from db_text_minimal_tpu_torch.postprocess import (DeviceBoxRepresenter,
                                                    DevicePolyRepresenter,
                                                    SegDetectorRepresenter)
+from db_text_minimal_tpu_torch.models.prune import load_widths
+from db_text_minimal_tpu_torch.serve.export import export_model, load_exported
 from db_text_minimal_tpu_torch.serve.handler import DBTextDetectionHandler
 from db_text_minimal_tpu_torch.train import trainer as T
 from db_text_minimal_tpu_torch.utils import CAFFE_MEAN
@@ -146,6 +171,20 @@ PROBE = "benchmarks/int8_conv_probe.py"
 # P1 launches per forward: every int8 conv ends in it (17 with skip=());
 # with static scales 7 of them write the next conv's int8 input
 INT8_CONVS, FUSED_PLACES = 17, 7
+# the export phase: an archive serves batch 1 and batch N; the JAX export
+# tests' rule (tests/test_cli_serve.py:215-217): at most 1 % of pixels more
+# than 1e-3 apart from the live forward of the same mode
+EXPORT_TOL, EXPORT_SHARE = 1e-3, 0.01
+# the prune phase: the JAX package's p50 keeps and what its report gives
+# for them (demo/hard_bench/prune_probe.json: widths and param ratio, a
+# count of weights), and odd keeps whose widths leave K and N of the int8
+# GEMMs off multiples of 8
+P50_KEEPS = ("0.5", "0.75", "0.5")
+P50_WIDTHS = {"backbone_hidden": [32, 32, 64, 64, 128, 128, 256, 256],
+              "fpn_inner_quarter": 48, "head_width": 64, "fpn_out": 128}
+P50_PARAM_RATIO = 0.5048
+ODD_KEEPS = ("0.3", "1.0", "130")
+PRUNE_STEPS = 3
 TRAIN_BATCH, TRAIN_STEPS, LR = 4, 12, 0.005
 # the launch counters of each device postprocess path; K4 runs twice on
 # both (the foreground's and the 4-connected background's labels)
@@ -1107,6 +1146,331 @@ def phase_quant(pth: str, flax_forward_ms: float) -> dict:
             "batch": batch}
 
 
+def event_median(fn, reps: int = 11) -> float:
+    """Median ms of ``fn`` by CUDA events around each call, after two
+    warm-up calls (no L2 flush: whole forwards)."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def check_export_maps(what: str, got: torch.Tensor, ref: torch.Tensor
+                      ) -> float:
+    """At most EXPORT_SHARE of the pixels more than EXPORT_TOL apart;
+    returns the max difference."""
+    if got.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} against "
+                             f"{tuple(ref.shape)}")
+    diff = (got.float() - ref.float()).abs()
+    share = (diff > EXPORT_TOL).float().mean().item()
+    if not (torch.isfinite(got).all() and share <= EXPORT_SHARE):
+        raise AssertionError(f"{what}: {share:.4%} of pixels more than "
+                             f"{EXPORT_TOL} apart (max {diff.max().item()})")
+    return diff.max().item()
+
+
+def check_same_boxes(what: str, got: list, ref: list) -> float:
+    """The same number of boxes per image, each box within 2.5 px (every
+    corner) of one of the other's; returns the largest such gap."""
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        gb = np.asarray(g["boxes"], float).reshape(-1, 4, 2)
+        rb = np.asarray(r["boxes"], float).reshape(-1, 4, 2)
+        if len(gb) != len(rb):
+            raise AssertionError(f"{what}: image {i}: {len(gb)} boxes "
+                                 f"against {len(rb)}")
+        for box in gb:
+            gap = np.abs(rb - box).max(axis=(1, 2)).min()
+            if gap >= 2.5:
+                raise AssertionError(f"{what}: image {i}: a box {gap} px "
+                                     f"from the nearest live box")
+            worst = max(worst, float(gap))
+    return worst
+
+
+def drive_export(what: str, infer, live, batch_u8: np.ndarray,
+                 want_p1: int, int8: bool = False) -> dict:
+    """One archive: batch 1 and batch N from it against the live forward
+    of the same mode on the same uint8 batch, P1's launches in one
+    forward of N (counts set to 0 just before, read just after), and both
+    forwards timed. The graph takes 2 or more images, so batch 1 runs as
+    its image twice: it is held to the live forward of that pair by the
+    export rule, and to the live batch of 1, whose convs take other
+    algorithms, by the export rule, or for int8 (where a float flip moves
+    a whole int8 step) by the int8 rule (a mean within 0.02, JAX
+    test_pallas_ops.py:315-320)."""
+    x = torch.from_numpy(batch_u8).cuda()
+    one, full = infer(batch_u8[:1]), infer(batch_u8)
+    gapn = check_export_maps(f"{what}, batch {N}", full, live(x))
+    gap1 = check_export_maps(f"{what}, batch 1 against the live pair",
+                             one, live(x[:1].repeat(2, 1, 1, 1))[:1])
+    alone = live(x[:1])
+    diff = (one - alone).abs()
+    share = (diff > EXPORT_TOL).float().mean().item()
+    if int8:
+        if not diff.mean().item() < 0.02:
+            raise AssertionError(f"{what}, batch 1: mean {diff.mean()} from "
+                                 f"the live batch of 1")
+    else:
+        check_export_maps(f"{what}, batch 1", one, alone)
+    I8.reset_launches()
+    infer(x)
+    torch.cuda.synchronize()
+    p1 = dict(I8.LAUNCHES)
+    if p1["int8_epilogue"] != want_p1:
+        raise AssertionError(f"{what}: P1 launched {p1} in one forward, "
+                             f"want {want_p1}")
+    ms, live_ms = event_median(lambda: infer(x)), event_median(
+        lambda: live(x))
+    log(f"export ok ({what}): one archive served batch 1 and {N} "
+        f"({tuple(full.shape)}, meta {json.dumps(infer.meta)}); max "
+        f"difference from the live forward {gapn:.3g} at batch {N}, "
+        f"{gap1:.3g} at batch 1 (against the live pair); against the live "
+        f"batch of 1: max {diff.max().item():.3g}, mean "
+        f"{diff.mean().item():.3g}, {share:.4%} of pixels beyond "
+        f"{EXPORT_TOL}; P1 launches a forward {p1}; forward at batch {N} "
+        f"{ms:.3f} ms against the live {live_ms:.3f} ms (median of 11, CUDA "
+        f"events)")
+    return {"ms": ms, "live_ms": live_ms, "p1": p1}
+
+
+def live_forward(pth: str, mode: str, prob_only: bool):
+    """The live forward of a mode on uint8 batches, as the handler runs
+    it: the means subtracted on the card, then the fused-head module (bf16)
+    or the folded forward."""
+    mean = torch.tensor(CAFFE_MEAN, device="cuda")
+    if mode == "flax":
+        model = load_model(pth, fuse_head=True)
+
+        def fwd(x):
+            with torch.inference_mode():
+                y = model(x.float() - mean)
+            return y[..., :1] if prob_only else y
+        return fwd
+    folded = make_folded_forward(load_state_dict(pth, fuse_head=True),
+                                 quantize=mode == "int8",
+                                 prob_only=prob_only)
+    return lambda x: folded(x.float() - mean)
+
+
+def phase_export(workdir: str, pth: str) -> dict:
+    """``serve.export`` at full width on the served .pth: the flax (bf16,
+    both maps), folded and int8 (prob-only) archives with a symbolic batch
+    and uint8 input, each loaded back, held to the live forward of its
+    mode at batch 1 and N (EXPORT_TOL, EXPORT_SHARE) and timed; the int8
+    archive launches P1 INT8_CONVS times a forward through the custom op.
+    Then the folded and int8 archives serve the batch through the handler
+    in box mode: K3-K6 launch, P1 INT8_CONVS times for int8, and the
+    folded archive's boxes are the live folded handler's within 2.5 px."""
+    request = [{"body": b} for b in synthetic_images()]
+    live_handler = DBTextDetectionHandler(pth, infer_mode="folded")
+    batch_u8 = live_handler.preprocess(request)
+    rows, paths = {}, {}
+    for mode, prob_only in (("flax", False), ("folded", True),
+                            ("int8", True)):
+        t0 = time.perf_counter()
+        source = (load_model(pth, fuse_head=True) if mode == "flax"
+                  else load_state_dict(pth, fuse_head=True))
+        paths[mode] = export_model(
+            source, os.path.join(workdir, f"db_{mode}.pt2"),
+            input_shape=(None, SIZE, SIZE, 3), infer_mode=mode,
+            prob_only=prob_only)
+        export_s = time.perf_counter() - t0
+        infer = load_exported(paths[mode])
+        rows[mode] = drive_export(
+            f"{mode} archive", infer, live_forward(pth, mode, prob_only),
+            batch_u8, INT8_CONVS if mode == "int8" else 0,
+            int8=mode == "int8")
+        rows[mode]["export_s"] = export_s
+        log(f"export timing ({mode}): export and save "
+            f"{export_s:.2f} s, {os.path.getsize(paths[mode])} bytes")
+
+    live = live_handler.handle(request, mode="boxes")
+    for mode in ("folded", "int8"):
+        handler = DBTextDetectionHandler(paths[mode])
+        handler.initialize()
+        cc.reset_launches()
+        I8.reset_launches()
+        result = handler.handle(request, mode="boxes")
+        torch.cuda.synchronize()
+        launches = {**cc.LAUNCHES, **I8.LAUNCHES}
+        check_launches(launches, RECT_PATH, f"the {mode} archive served")
+        want = INT8_CONVS if mode == "int8" else 0
+        if launches["int8_epilogue"] != want:
+            raise AssertionError(f"the {mode} archive served: P1 launches "
+                                 f"{launches['int8_epilogue']}, want {want}")
+        check_box_result(result)
+        gap = (check_same_boxes(f"the {mode} archive served", result, live)
+               if mode == "folded" else None)
+        try:
+            handler.handle(request[:1], mode="masks")
+            raise AssertionError("a prob-only archive served masks mode")
+        except ValueError as e:
+            if "prob_only" not in str(e):
+                raise
+        quartiles = serve_stages(handler, request)
+        log(f"export serve ok ({mode}): handle() in box mode from "
+            f"{os.path.basename(paths[mode])}, boxes per image "
+            f"{[len(r['boxes']) for r in result]}, largest gap to the live "
+            f"folded handler's boxes {gap} px; masks mode refused; "
+            f"launches {json.dumps(launches)}; "
+            f"{N * 1e3 / quartiles['total'][1]:.2f} img/s, per batch ms "
+            f"[q25, median, q75] {json.dumps(quartiles)}")
+    return rows
+
+
+def prune_pth(workdir: str, pth: str, name: str, keeps: tuple) -> tuple:
+    out = os.path.join(workdir, f"{name}.pth")
+    t0 = time.perf_counter()
+    report = prune_cli.main(prune_cli.load_args(
+        ["--checkpoint", pth, "--out", out, "--backbone_keep", keeps[0],
+         "--fpn_inner_keep", keeps[1], "--fpn_out_keep", keeps[2]]))
+    if load_widths(out) != report["widths"]:
+        raise AssertionError(f"{name}: the sidecar does not hold the widths")
+    log(f"prune ok ({name}): keeps {keeps}, widths "
+        f"{json.dumps(report['widths'])}, params {report['params']}, conv "
+        f"weight MACs ratio {report['conv_weight_macs']['ratio']}, in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return out, report
+
+
+def phase_prune(workdir: str, pth: str) -> dict:
+    """``cli.prune`` on the served .pth at the JAX p50 keeps (the widths
+    and param ratio of the JAX report) and at odd keeps (K and N of the
+    int8 GEMMs padded); each loaded by ``load_model`` and
+    ``build_inference_forward`` with its sidecar: the folded forward in fp32
+    against the pruned model in fp32 (atol 2e-4, JAX test_prune.py:186) on
+    2 images; the folded and int8 handlers in box mode (K3-K6, and P1 once
+    per int8 conv); 3 bf16 train steps of the p50 model at batch 4 (K2
+    each step) whose checkpoints carry the sidecar; the odd-keep int8
+    archive held as in the export phase; the folded forward at batch N,
+    full against p50, timed in turns."""
+    request = [{"body": b} for b in synthetic_images()]
+    p50, report = prune_pth(workdir, pth, "p50", P50_KEEPS)
+    if (report["widths"] != P50_WIDTHS
+            or report["params"]["ratio"] != P50_PARAM_RATIO):
+        raise AssertionError(f"p50: {report} against the JAX report's "
+                             f"{P50_WIDTHS}, {P50_PARAM_RATIO}")
+    odd, _ = prune_pth(workdir, pth, "odd", ODD_KEEPS)
+    batch_u8 = DBTextDetectionHandler(pth).preprocess(request)
+    x = (torch.from_numpy(batch_u8[:2]).cuda().float()
+         - torch.tensor(CAFFE_MEAN, device="cuda"))
+    handlers, gaps = {}, {}
+    crop = x[:, 288:352, 288:352].contiguous()
+    for name, path in (("full", pth), ("p50", p50), ("odd", odd)):
+        # the folded forward in fp32 against the model in fp32, on 2 crops
+        # of 64x64 (the JAX test's size) and on the 2 images, held to the
+        # JAX export tests' rule for the same maps up to summation order;
+        # the full model's gaps are the yardstick
+        model = load_model(path, dtype=torch.float32)
+        qv, _ = build_inference_forward(path, infer_mode="folded")
+        with torch.inference_mode():
+            gaps[name] = [check_export_maps(
+                f"{name}: folded fp32 against the model at {what}",
+                Q.quant_dbnet_forward(qv, t, compute_dtype=torch.float32),
+                model(t)) for what, t in (("64x64", crop),
+                                          ("640x640", x))]
+        if name == "full":
+            continue
+        int8_qv, _ = build_inference_forward(path, infer_mode="int8")
+        n_int8 = len(Q._forward_conv_order(int8_qv["params"]))
+        padded = sorted(
+            f"{blk}/{conv}" for blk, node in int8_qv["params"][
+                "backbone"].items() if "conv1" in node
+            for conv, leaf in node.items() if "w_cols" in leaf)
+        for mode in ("folded", "int8"):
+            handler = DBTextDetectionHandler(path, infer_mode=mode)
+            handler.initialize()
+            cc.reset_launches()
+            I8.reset_launches()
+            result = handler.handle(request, mode="boxes")
+            torch.cuda.synchronize()
+            launches = {**cc.LAUNCHES, **I8.LAUNCHES}
+            check_launches(launches, RECT_PATH, f"{name} {mode} served")
+            want = n_int8 if mode == "int8" else 0
+            if launches["int8_epilogue"] != want:
+                raise AssertionError(f"{name} {mode}: P1 launches "
+                                     f"{launches['int8_epilogue']}, want "
+                                     f"{want}")
+            check_box_result(result)
+            handlers[(name, mode)] = handler
+            log(f"prune serve ok ({name}, {mode}): box mode, boxes per "
+                f"image {[len(r['boxes']) for r in result]}, launches "
+                f"{json.dumps(launches)}")
+        log(f"prune check ok ({name}): folded fp32 against the pruned "
+            f"model fp32, max {gaps[name][0]:.3g} on 2 crops of 64x64, "
+            f"{gaps[name][1]:.3g} on 2 images of 640x640 (the full model: "
+            f"{gaps['full'][0]:.3g}, {gaps['full'][1]:.3g}; at most "
+            f"{EXPORT_SHARE:.0%} of pixels beyond {EXPORT_TOL}); {n_int8} "
+            f"int8 convs, padded GEMMs in the backbone {padded}")
+
+    # three bf16 train steps of the p50 model, its checkpoints' sidecars
+    cfg = train_config(os.path.join(workdir, "p50_train"), SIZE,
+                       TRAIN_BATCH, "cuda")
+    cfg.model.widths = load_widths(p50)
+    cfg.metric.is_output_polygon = False
+    batch = text_batch(SEED, TRAIN_BATCH, SIZE)
+    trainer = T.Trainer(cfg, [batch] * PRUNE_STEPS,
+                        [text_batch(SEED + 1, 1, SIZE)])
+    state = trainer.resume_state(p50)
+    D.reset_launches()
+    state, history = trainer.fit(state, no_epochs=1)
+    torch.cuda.synchronize()
+    k2 = dict(D.LAUNCHES)
+    if not (k2["db_step_forward"] == k2["db_step_backward"] == PRUNE_STEPS):
+        raise AssertionError(f"p50 train: K2 launches {k2}")
+    last = os.path.join(cfg.meta.root_dir, cfg.model.last_cp_path)
+    if load_widths(last) != P50_WIDTHS:
+        raise AssertionError(f"p50 train: {last} has no widths sidecar")
+    losses = [row["total_loss"] for row in trainer.loss_log]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"p50 train: losses {losses}")
+    log(f"prune train ok: {PRUNE_STEPS} bf16 steps of the p50 model at "
+        f"batch {TRAIN_BATCH}, losses {[round(v, 4) for v in losses]}, K2 "
+        f"launches {k2}, {os.path.basename(last)} with its sidecar")
+
+    # the odd-keep int8 archive, padded GEMMs and all
+    infer = load_exported(export_model(
+        load_state_dict(odd, fuse_head=True),
+        os.path.join(workdir, "odd_int8.pt2"),
+        input_shape=(None, SIZE, SIZE, 3), infer_mode="int8",
+        prob_only=True, widths=load_widths(odd)))
+    odd_qv, _ = build_inference_forward(odd, infer_mode="int8")
+    drive_export("odd-keep int8 archive", infer,
+                 live_forward(odd, "int8", True), batch_u8,
+                 len(Q._forward_conv_order(odd_qv["params"])), int8=True)
+
+    # the folded forward at batch N, full against p50, in turns
+    full = DBTextDetectionHandler(pth, infer_mode="folded")
+    full.initialize()
+    times = {}
+    for name, handler in (("full", full), ("p50", handlers[("p50",
+                                                            "folded")]),
+                          ("full", full), ("p50", handlers[("p50",
+                                                            "folded")])):
+        times[name] = event_median(
+            lambda: handler.inference(batch_u8, prob_only=True))
+        times[name + " handle"] = serve_stages(handler, request, reps=6)
+    log(f"prune timing: the folded prob-only forward at batch {N}, "
+        f"640x640, bf16 convs: full {times['full']:.3f} ms, p50 "
+        f"{times['p50']:.3f} ms ({times['full'] / times['p50']:.3f}x; "
+        f"median of 11, the later of two turns); handle() in box mode: full "
+        f"{N * 1e3 / times['full handle']['total'][1]:.2f} img/s, p50 "
+        f"{N * 1e3 / times['p50 handle']['total'][1]:.2f} img/s; per batch "
+        f"ms full {json.dumps(times['full handle'])}, p50 "
+        f"{json.dumps(times['p50 handle'])}")
+    return times
+
+
 def phase_check_quant(flax_preds: torch.Tensor, quant: dict) -> None:
     """The folded and int8 prob maps against the flax mode's on the served
     batch (mean abs < 0.02, the JAX package's bound for int8 against
@@ -1677,6 +2041,8 @@ def main() -> int:
             phase_check_quant(preds, quant)
             p1_launches = quant["launches"]
             del quant
+            phase_export(workdir, pth)
+            phase_prune(workdir, pth)
             poly_launches = phase_polygon(preds)
             del preds
             train_launches = phase_train(workdir)

@@ -4,7 +4,10 @@ Counterpart of ``db_text_minimal_tpu/cli/common.py``: ``load_model``,
 ``make_forward`` for the plain module forward (the JAX package's
 ``infer_mode="flax"``), ``make_folded_forward`` for the BN-folded and int8
 forwards (``models/quant_infer``) and ``build_inference_forward``, which
-chooses among the three.
+chooses among the three. A pruned checkpoint's ``.widths.json`` sidecar
+(``models/prune``) is applied wherever a checkpoint is loaded: the plain
+model is built at its widths, and the folded trees take their shapes from
+its weights.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from ..models import DBTextModel
 from ..models.head import fuse_variables
+from ..models.prune import load_widths, widths_to_model_kwargs
 from ..models.quant_infer import (calibrate_activation_scales,
                                   prepare_quant_params, quant_dbnet_forward,
                                   tree_to)
@@ -40,8 +44,9 @@ def _fp32_convolutions() -> None:
 
 
 def load_state_dict(model_path: str, fuse_head: bool = False) -> dict:
-    """The state_dict of a ``.pth``; ``fuse_head=True`` rewrites a
-    ``DBHead`` checkpoint into the ``FusedDBHead`` layout."""
+    """The state_dict of a ``.pth`` or a checkpoint; ``fuse_head=True``
+    rewrites a ``DBHead`` checkpoint into the ``FusedDBHead`` layout. A
+    pruned checkpoint's weights come at its widths."""
     if not os.path.exists(model_path):
         raise FileNotFoundError(model_path)
     state_dict = load_params_any(model_path)
@@ -62,14 +67,16 @@ def load_model(model_path: str, device="cuda", backbone: str = "resnet18",
     ``dtype`` is the compute dtype (``DBTextModel.compute_dtype``); by
     default bfloat16 on CUDA and float32 on the CPU (``default_dtype``).
     ``torch.float32`` is the parity configuration: convolutions and matmuls
-    in full float32 (TF32 off for the process)."""
+    in full float32 (TF32 off for the process). A pruned checkpoint's
+    widths sidecar gives the narrow model."""
     device = resolve_device(device)
     _fp32_convolutions()
     state_dict = load_state_dict(model_path, fuse_head and head == "DBHead")
     if fuse_head and head == "DBHead":
         head = "FusedDBHead"
     model = DBTextModel(backbone_name=backbone, head_name=head,
-                        compute_dtype=dtype or default_dtype(device))
+                        compute_dtype=dtype or default_dtype(device),
+                        **widths_to_model_kwargs(load_widths(model_path)))
     model.load_state_dict(state_dict, strict=True)
     return model.to(device).eval()
 

@@ -38,10 +38,11 @@ from ..data import DataLoader, build_dataset
 from ..metrics import (DetectionDetEvalEvaluator, DetectionIoUEvaluator,
                        QuadMetric)
 from ..models.head import fuse_variables
+from ..models.prune import load_widths, save_widths
 from ..models.quant_infer import DEFAULT_SKIP
 from ..postprocess import (DeviceBoxRepresenter, DevicePolyRepresenter,
                            SegDetectorRepresenter)
-from ..train.checkpoints import load_widths, save_checkpoint
+from ..train.checkpoints import save_checkpoint
 from ..train.trainer import Trainer, device_preprocess, to_device
 from ..utils import CAFFE_MEAN, resolve_device
 from .common import make_folded_forward
@@ -153,8 +154,8 @@ def build_cfg(args):
                   "head": "DBHead",
                   "pretrained_backbone_path": args.pretrained_backbone or "",
                   "finetune_cp_path": "",
-                  # a pruned checkpoint's widths, which the Trainer refuses
-                  # until pruning is ported
+                  # a pruned checkpoint's widths: the Trainer builds the
+                  # narrow model from them
                   "widths": (load_widths(args.checkpoint)
                              if args.checkpoint else None)},
         "optimizer": {"lr": args.lr, "reduction": args.reduction,
@@ -341,6 +342,10 @@ def main(args=None):
         save_checkpoint(args.save_checkpoint, state.state_dict())
         with open(args.save_checkpoint + ".train_config.json", "w") as f:
             json.dump(train_config, f)
+        # a fine-tuned pruned model keeps its widths, so that the new
+        # checkpoint loads (JAX quality_bench.py:398-403)
+        if cfg.model.widths:
+            save_widths(args.save_checkpoint, dict(cfg.model.widths))
 
     if args.no_final_eval:
         results, eval_wall = {"skipped": True}, 0.0

@@ -9,8 +9,9 @@ restores a checkpoint's whole training state. The model runs on
 
 Not ported here: the multi-host flags (ROADMAP queue 1 item 10),
 ``--profile_dir`` and the TensorBoard writer (item 9). A pruned checkpoint's
-``.widths.json`` is passed on in the configuration, where the ``Trainer``
-refuses it until pruning is ported (item 4).
+``.widths.json`` goes into the configuration (``model.widths``), from
+which the ``Trainer`` builds the narrow model and its checkpoints keep
+the sidecar.
 
 Usage::
 
@@ -25,7 +26,7 @@ import os
 
 from ..config import load_config
 from ..data import DataLoader, build_dataset
-from ..train.checkpoints import load_widths
+from ..models.prune import load_widths
 from ..train.trainer import Trainer
 from ..utils import resolve_device
 

@@ -13,6 +13,13 @@ is cast to it at the top, every conv and deconv computes in it, every BN
 and the head's sigmoids in float32, and the final resize in float32
 (``layers``). Parameters, buffers and so optimizer state stay float32 and
 the state_dict keys are the same in every compute dtype.
+
+The width overrides are the JAX fields (dbnet.py:34-41), set from a
+pruned checkpoint's ``.widths.json`` (``models/prune``): ``backbone_hidden``
+a per-block tuple of conv1 widths (0 keeps the default),
+``fpn_inner_quarter`` and ``fpn_out`` the FPN's tied inner and output
+widths, ``head_width`` the head branches' width. None everywhere is the
+unpruned model; the state_dict keys do not change.
 """
 
 from __future__ import annotations
@@ -30,12 +37,17 @@ from .resnet import BACKBONE_OUT_CHANNELS, BACKBONES
 class DBTextModel(nn.Module):
     def __init__(self, backbone_name: str = "resnet18",
                  head_name: str = "DBHead", inner_channels: int = 256,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 backbone_hidden: tuple | None = None,
+                 fpn_inner_quarter: int | None = None,
+                 fpn_out: int | None = None, head_width: int | None = None):
         super().__init__()
-        self.backbone = BACKBONES[backbone_name]()
+        self.backbone = BACKBONES[backbone_name](backbone_hidden)
         self.segmentation_body = FPN(BACKBONE_OUT_CHANNELS[backbone_name],
-                                     inner_channels)
-        self.segmentation_head = HEADS[head_name](inner_channels)
+                                     inner_channels, fpn_inner_quarter,
+                                     fpn_out)
+        self.segmentation_head = HEADS[head_name](
+            self.segmentation_body.out_channels, head_width)
         self.set_compute_dtype(compute_dtype)
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "DBTextModel":

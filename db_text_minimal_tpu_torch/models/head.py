@@ -4,7 +4,8 @@ Counterpart of ``db_text_minimal_tpu/models/head.py``. Each ``DBHead``
 branch is conv3×3(C→C/4) + BN + relu → deconv2×2/2 + BN + relu →
 deconv2×2/2 → sigmoid, kept as an ``nn.Sequential`` whose indices 0/1/3/4/6
 are the reference's key names. The binarize conv1 has a bias, the thresh
-conv1 does not. ``FusedDBHead`` runs both branches' first convs as one
+conv1 does not. ``width`` pins the branches' width (default C/4), so that a
+pruned neck output does not shrink the head with it (JAX head.py:36-40). ``FusedDBHead`` runs both branches' first convs as one
 conv and is weight-compatible through ``fuse_db_head_params``; it is an
 inference form and refuses train mode, as the JAX version asserts.
 
@@ -43,9 +44,9 @@ class DBHead(nn.Module):
 
     k = 50.0   # the step's steepness, the reference's and the JAX default
 
-    def __init__(self, in_channels: int = 256):
+    def __init__(self, in_channels: int = 256, width: int | None = None):
         super().__init__()
-        width = in_channels // 4
+        width = width or in_channels // 4
         self.binarize = _branch(in_channels, width, True)
         self.thresh = _branch(in_channels, width, False)
 
@@ -62,9 +63,9 @@ class FusedDBHead(nn.Module):
     each) run as one C→C/2 conv, then each half goes through its own
     tail. Eval mode only."""
 
-    def __init__(self, in_channels: int = 256):
+    def __init__(self, in_channels: int = 256, width: int | None = None):
         super().__init__()
-        width = in_channels // 4
+        width = width or in_channels // 4
         self.conv1 = Conv2d(in_channels, 2 * width, 3, padding=1)
         self.bn1 = batch_norm(2 * width)
         for name in ("binarize", "thresh"):

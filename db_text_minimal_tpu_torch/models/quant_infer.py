@@ -10,7 +10,8 @@ The other convs and the deconvs run in the compute dtype: bf16 on the card,
 f32 on the CPU, as the JAX package's ``_compute_dtype`` chooses.
 
 An int8 conv is ``ops.int8.int8_conv2d`` (im2col, ``torch._int_mm``) into
-int32, then the P1 kernel ``ops.int8.int8_epilogue``: the f32
+int32 (K and N zero-padded to multiples of 8 where a pruned width leaves
+them otherwise), then the P1 kernel ``ops.int8.int8_epilogue``: the f32
 ``relu?(acc * sx*eff + bias)`` the JAX forward computes at
 ``quant_infer.py:243``, or, where an int8 conv feeds the next int8 conv
 directly after relu and that conv has a static scale (conv1 -> conv2 of
@@ -37,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.int8 import (dynamic_scale, int8_conv2d, int8_epilogue,
-                        quantize_per_tensor)
+                        pad_cols, quantize_per_tensor)
 from .layers import (max_pool_3x3_s2, resize_bilinear_align_corners,
                      resize_nearest)
 
@@ -78,14 +79,23 @@ def _fold(weight: np.ndarray, bias=None, bn: dict | None = None,
 
 def _quantize(node: dict) -> dict:
     """Per-output-channel symmetric int8 of a folded OIHW conv; the int8
-    kernel is stored OHWI."""
+    kernel is stored OHWI. Where Cout or k*k*Cin is not a multiple of 8 (a
+    pruned width), ``w_cols`` holds the column matrix zero-padded to
+    multiples of 8 (``ops.int8.pad_cols``) and ``eff_scale`` and ``bias``
+    are zero-padded to its rows."""
     k = node["kernel"]
     amax = np.abs(k).max(axis=(1, 2, 3), keepdims=True)
     scale = np.maximum(amax / 127.0, 1e-12)
-    q = np.clip(np.round(k / scale), -127, 127).astype(np.int8)
-    return {"kernel": np.ascontiguousarray(q.transpose(0, 2, 3, 1)),
-            "eff_scale": scale.reshape(-1).astype(np.float32),
-            "bias": node["bias"]}
+    q = np.ascontiguousarray(np.clip(np.round(k / scale), -127,
+                                     127).astype(np.int8).transpose(0, 2, 3, 1))
+    out = {"kernel": q, "eff_scale": scale.reshape(-1).astype(np.float32),
+           "bias": node["bias"]}
+    w_cols = pad_cols(q.reshape(q.shape[0], -1))
+    if w_cols is not None:
+        out["w_cols"] = w_cols
+        for key in ("eff_scale", "bias"):
+            out[key] = np.pad(out[key], (0, w_cols.shape[0] - q.shape[0]))
+    return out
 
 
 def tree_to(tree, device) -> dict:
@@ -214,11 +224,16 @@ def _fconv(x, node, run: _Run, stride=1, pad=1, relu=False,
         if run.int8_inputs is not None:
             run.int8_inputs.append(q)
         cout = kernel.shape[0]
-        acc = int8_conv2d(q.contiguous(), kernel.reshape(cout, -1),
-                          kernel.shape[1], stride, pad)
-        y = int8_epilogue(acc.view(-1, cout), sx * node["eff_scale"],
-                          node["bias"], relu, out_scale)
-        return y.view(acc.shape)
+        w_cols = node.get("w_cols")
+        if w_cols is None:
+            w_cols = kernel.reshape(cout, -1)
+        acc = int8_conv2d(q.contiguous(), w_cols, kernel.shape[1], stride,
+                          pad)
+        y = int8_epilogue(acc.view(-1, w_cols.shape[0]),
+                          sx * node["eff_scale"], node["bias"], relu,
+                          out_scale).view(acc.shape)
+        # the padded rows' outputs are zero: drop them
+        return y if w_cols.shape[0] == cout else y[..., :cout]
     y = F.conv2d(_nchw(x).to(run.ct), kernel.to(run.ct), stride=stride,
                  padding=pad)
     y = _nhwc(y).float() + node["bias"]

@@ -21,12 +21,12 @@ product then f32 add, the reciprocal of the output scale multiplied, round
 half to even, clip to +-127.
 """
 
-from __future__ import annotations
-
 import ctypes
 import os
 import threading
+from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,19 +81,42 @@ def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
     return torch.div(amax, torch.full((), 127.0, device=x.device))
 
 
+def _up8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def pad_cols(w_cols: np.ndarray) -> np.ndarray | None:
+    """An int8 kernel's (Cout, K) column matrix zero-padded to multiples of
+    8 in both dimensions, as the card's int8 GEMM takes them; None when it
+    already is."""
+    n, k = w_cols.shape
+    if (n, k) == (_up8(n), _up8(k)):
+        return None
+    out = np.zeros((_up8(n), _up8(k)), np.int8)
+    out[:n, :k] = w_cols
+    return out
+
+
 def int8_conv2d(q: torch.Tensor, w_cols: torch.Tensor, k: int, stride: int,
                 pad: int) -> torch.Tensor:
     """int8 x int8 -> int32 convolution of NHWC ``q`` (N, H, W, Cin) with
-    ``w_cols`` (Cout, k*k*Cin), the kernel in (kh, kw, cin) order, zero
-    padded by ``pad`` on every side. Returns int32 (N, Ho, Wo, Cout). The
-    column matrix is (N*Ho*Wo, k*k*Cin) int8, built by two ``unfold`` views
-    and one copy."""
+    ``w_cols`` (Cout, K), the kernel in (kh, kw, cin) order, zero padded by
+    ``pad`` on every side. K is k*k*Cin, or more where ``pad_cols`` padded
+    it: the columns get as many zero columns. Returns int32 (N, Ho, Wo,
+    Cout). The column matrix is (N*Ho*Wo, K) int8, built by two ``unfold``
+    views and one copy."""
     if pad:
         q = F.pad(q, (0, 0, pad, pad, pad, pad))
     n, cin = q.shape[0], q.shape[3]
     win = q.unfold(1, k, stride).unfold(2, k, stride)  # N,Ho,Wo,C,kh,kw
     ho, wo = win.shape[1], win.shape[2]
-    cols = win.permute(0, 1, 2, 4, 5, 3).reshape(n * ho * wo, k * k * cin)
+    taps = win.permute(0, 1, 2, 4, 5, 3)
+    kk = k * k * cin
+    if w_cols.shape[1] == kk:
+        cols = taps.reshape(n * ho * wo, kk)
+    else:
+        cols = q.new_zeros((n * ho * wo, w_cols.shape[1]))
+        cols[:, :kk].view(n, ho, wo, k, k, cin).copy_(taps)
     acc = torch._int_mm(cols, w_cols.t())
     return acc.view(n, ho, wo, w_cols.shape[0])
 
@@ -112,16 +135,12 @@ def int8_epilogue_plain(acc: torch.Tensor, scale: torch.Tensor,
     return _requantize(y, torch.reciprocal(out_scale))
 
 
-def int8_epilogue(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                  relu: bool, out_scale: torch.Tensor | None = None
-                  ) -> torch.Tensor:
-    """P1 over int32 (M, C) accumulators, per channel ``scale`` and
-    ``bias`` (C,) f32: the f32 ``relu?(acc * scale + bias)``, or, with
-    ``out_scale`` (a 0-d f32 tensor), that requantized to int8 at it."""
+def _check(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
+           ) -> None:
     if acc.dim() != 2 or acc.dtype != torch.int32:
         raise TypeError(f"acc must be int32 (M, C), got {acc.dtype} "
                         f"{tuple(acc.shape)}")
-    m, c = acc.shape
+    c = acc.shape[1]
     if c % 4:
         raise ValueError(f"the channel count {c} is not a multiple of 4")
     for name, t in (("scale", scale), ("bias", bias)):
@@ -131,11 +150,26 @@ def int8_epilogue(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if not (acc.is_contiguous() and scale.is_contiguous()
             and bias.is_contiguous()):
         raise ValueError("int8_epilogue takes contiguous tensors")
-    extra = [] if out_scale is None else [out_scale]
-    if not on_cuda(acc, scale, bias, *extra):
-        return int8_epilogue_plain(acc, scale, bias, relu, out_scale)
+
+
+@torch.library.custom_op("dbtext::int8_epilogue", mutates_args=())
+def _epilogue_op(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 relu: bool, out_scale: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """The CPU implementation: the plain version."""
+    _check(acc, scale, bias)
+    return int8_epilogue_plain(acc, scale, bias, relu, out_scale)
+
+
+@_epilogue_op.register_kernel("cuda")
+def _epilogue_cuda(acc, scale, bias, relu, out_scale):
+    """The CUDA implementation: P1's kernel, or a raise."""
+    _check(acc, scale, bias)
+    # the dispatcher chose CUDA: on_cuda raises if the inputs mix devices
+    on_cuda(acc, scale, bias, *([] if out_scale is None else [out_scale]))
     if any(t.data_ptr() % 16 for t in (acc, scale, bias)):
         raise ValueError("int8_epilogue takes 16-byte aligned tensors")
+    m, c = acc.shape
     inv = None
     if out_scale is not None:
         inv = torch.reciprocal(out_scale.reshape(()).float())
@@ -151,3 +185,20 @@ def int8_epilogue(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         LAUNCHES["int8_epilogue_int8" if inv is not None
                  else "int8_epilogue_f32"] += 1
     return out
+
+
+@_epilogue_op.register_fake
+def _epilogue_fake(acc, scale, bias, relu, out_scale):
+    return acc.new_empty(acc.shape, dtype=torch.int8 if out_scale is not None
+                         else torch.float32)
+
+
+def int8_epilogue(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  relu: bool, out_scale: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+    """P1 over int32 (M, C) accumulators, per channel ``scale`` and
+    ``bias`` (C,) f32: the f32 ``relu?(acc * scale + bias)``, or, with
+    ``out_scale`` (a 0-d f32 tensor), that requantized to int8 at it.
+    Dispatches to the custom op ``dbtext::int8_epilogue``: its kernel on
+    CUDA tensors, its plain version on CPU ones."""
+    return torch.ops.dbtext.int8_epilogue(acc, scale, bias, relu, out_scale)

@@ -15,6 +15,13 @@ the plain fused-head module, in ``dtype`` (by default bfloat16 on CUDA and
 float32 on the CPU, as ``cli.common.load_model``). The folded modes serve box mode through the
 prob-only forward (the thresh branch is skipped) and the masks modes
 through the two-map one.
+
+A ``model_path`` ending in ``.pt2`` serves that export (``serve/export``),
+as the JAX handler serves a ``.stablehlo`` artifact: ``infer_mode`` and
+``dtype`` are then ignored (the archive holds its own forward), uint8
+batches go up as they are, a legacy float-input export gets the means
+subtracted on the host, and a ``prob_only`` export refuses the masks
+modes.
 """
 
 from __future__ import annotations
@@ -49,9 +56,13 @@ class DBTextDetectionHandler:
         self.box_representer = DeviceBoxRepresenter()
         self._forward = None
         self._forward_prob = None   # prob-only forward for box mode
+        self._prob_only = False     # a prob-only export: no thresh map
         self.initialized = False
 
     def initialize(self) -> None:
+        if self.model_path.endswith(".pt2"):
+            self._initialize_export()
+            return
         mean = torch.tensor(CAFFE_MEAN, dtype=torch.float32,
                             device=self.device)
         if self.infer_mode == "flax":
@@ -76,6 +87,20 @@ class DBTextDetectionHandler:
 
         self._forward = on_device(maps)
         self._forward_prob = prob and on_device(prob)
+        self.initialized = True
+
+    def _initialize_export(self) -> None:
+        from .export import load_exported
+
+        infer = load_exported(self.model_path, device=self.device)
+        self._prob_only = bool(infer.meta.get("prob_only"))
+        if infer.meta.get("uint8_input"):
+            self._forward = infer
+        else:
+            # a legacy export traced on mean-subtracted float input
+            mean = np.asarray(CAFFE_MEAN, np.float32)
+            self._forward = lambda batch: infer(
+                np.asarray(batch, np.float32) - mean)
         self.initialized = True
 
     def preprocess(self, request: list[dict[str, Any]]) -> np.ndarray:
@@ -142,6 +167,11 @@ class DBTextDetectionHandler:
             self.initialize()
         if request is None:
             return None
+        if mode != "boxes" and self._prob_only:
+            raise ValueError(
+                "this export was built with --prob_only (no thresh map); "
+                "masks/masks_png modes need a 2-channel graph: use "
+                "mode=boxes or re-export without --prob_only")
         batch = self.preprocess(request)
         if mode == "boxes":
             # only K box records per image leave the device

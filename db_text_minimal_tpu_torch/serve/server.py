@@ -10,6 +10,10 @@ Usage::
     python -m db_text_minimal_tpu_torch.serve.server --model_path model.pth \
         --port 8080 [--model_name dbtext] [--device cuda] \
         [--infer_mode folded|int8|flax]
+
+``--model_path`` takes a ``.pth`` or checkpoint (served in
+``--infer_mode``) or a ``.pt2`` export (``cli.export``; it carries its own
+forward, and ``--infer_mode`` is ignored).
 """
 
 from __future__ import annotations
@@ -125,7 +129,8 @@ def make_server(model_path: str, port: int = 8080,
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("--model_path", type=str, required=True)
+    parser.add_argument("--model_path", type=str, required=True,
+                        help="a .pth or checkpoint, or a .pt2 export")
     parser.add_argument("--port", type=int, default=8080)
     parser.add_argument("--model_name", type=str, default="dbtext")
     parser.add_argument("--max_batch", type=int, default=8)

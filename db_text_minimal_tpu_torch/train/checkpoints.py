@@ -7,9 +7,9 @@ state_dict, "step": int}``, with the reference's key names in the model's
 state_dict, and a ``<path>.json`` of metadata beside it. ``load_params_any``
 reads the model weights of such a file or of a reference-format ``.pth``
 state_dict; the JAX package's own Flax msgpack / orbax checkpoints are not
-read yet. ``load_widths`` reads a pruned checkpoint's ``.widths.json``
-sidecar, which the ``CheckpointPolicy`` and the ``Trainer`` refuse until
-pruning is ported (ROADMAP queue 1 item 4).
+read yet. A pruned checkpoint carries its channel widths in a
+``<path>.widths.json`` sidecar (``models/prune``): a ``CheckpointPolicy``
+given ``widths`` writes it beside every checkpoint it saves.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import zipfile
 
 import numpy as np
 import torch
+
+from ..models.prune import save_widths
 
 # the reference's backbone modules that its forward pass never calls
 _UNUSED_PREFIXES = ("backbone.fc.", "backbone.avgpool.", "backbone.smooth.")
@@ -68,32 +70,27 @@ def load_params_any(path: str) -> dict:
     return out
 
 
-def load_widths(checkpoint_path: str) -> dict | None:
-    """The ``<checkpoint>.widths.json`` sidecar of a pruned checkpoint, or
-    None when there is none."""
-    sidecar = checkpoint_path + ".widths.json"
-    if not os.path.exists(sidecar):
-        return None
-    with open(sidecar) as f:
-        return json.load(f)
-
-
 class CheckpointPolicy:
     """The reference's three checkpoints: best hmean, best train and test
-    loss together, and last."""
+    loss together, and last. With a pruned model's ``widths``, each
+    checkpoint gets the ``.widths.json`` sidecar, without which a loader
+    would build the default widths against narrow weights (JAX
+    checkpoints.py:103-113)."""
 
     def __init__(self, root_dir: str, best_cp_path: str, last_cp_path: str,
                  best_hmean_cp_path: str, widths: dict | None = None):
-        if widths:
-            raise NotImplementedError(
-                "pruned-width checkpoints are not ported (ROADMAP queue 1 "
-                "item 4)")
+        self.widths = dict(widths) if widths else None
         self.best_cp_path = os.path.join(root_dir, best_cp_path)
         self.last_cp_path = os.path.join(root_dir, last_cp_path)
         self.best_hmean_cp_path = os.path.join(root_dir, best_hmean_cp_path)
         self.best_test_loss = np.inf
         self.best_train_loss = np.inf
         self.best_hmean = 0.0
+
+    def _save(self, path: str, state, meta) -> None:
+        save_checkpoint(path, state, meta)
+        if self.widths:
+            save_widths(path, self.widths)
 
     def on_epoch_end(self, state, *, train_loss: float, test_loss: float,
                      hmean: float, epoch: int) -> list[str]:
@@ -102,16 +99,16 @@ class CheckpointPolicy:
                 "test_loss": test_loss, "hmean": hmean}
         if hmean >= self.best_hmean:
             self.best_hmean = hmean
-            save_checkpoint(self.best_hmean_cp_path, state, meta)
+            self._save(self.best_hmean_cp_path, state, meta)
             saved.append(self.best_hmean_cp_path)
         if (test_loss <= self.best_test_loss
                 and train_loss <= self.best_train_loss):
             self.best_test_loss = test_loss
             self.best_train_loss = train_loss
-            save_checkpoint(self.best_cp_path, state, meta)
+            self._save(self.best_cp_path, state, meta)
             saved.append(self.best_cp_path)
         return saved
 
     def on_train_end(self, state, epoch: int) -> str:
-        save_checkpoint(self.last_cp_path, state, {"epoch": epoch})
+        self._save(self.last_cp_path, state, {"epoch": epoch})
         return self.last_cp_path

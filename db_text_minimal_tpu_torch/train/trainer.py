@@ -40,6 +40,7 @@ from ..config import ConfigNode
 from ..lr_schedules import ReduceLROnPlateau, warmup_poly_lr
 from ..metrics import QuadMetric, RunningScore
 from ..models import DBTextModel
+from ..models.prune import widths_to_model_kwargs
 from ..postprocess import DeviceBoxRepresenter, SegDetectorRepresenter
 from ..utils import (CAFFE_MEAN, StepTimer, resolve_device, setup_determinism,
                      setup_logger)
@@ -229,9 +230,6 @@ class Trainer:
             if cfg.logging and cfg.logging.logger_file else None)
         self.seed = int(cfg.trainer.seed if cfg.trainer else 42)
         setup_determinism(self.seed)
-        if cfg.model.widths:
-            raise NotImplementedError(
-                "pruned widths are not ported (ROADMAP queue 1 item 4)")
         if (cfg.model.neck or "FPN") != "FPN":
             raise NotImplementedError(f"neck {cfg.model.neck!r} is not "
                                       f"ported (ROADMAP queue 1 item 8)")
@@ -263,11 +261,15 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
         """Seeded random weights, then the pretrained backbone and the
-        finetune checkpoint where the config names files that exist."""
+        finetune checkpoint where the config names files that exist. A
+        pruned model's widths (``cfg.model.widths``, the checkpoint's
+        sidecar, set by ``cli.train`` and ``quality_bench``) give the
+        narrow architecture."""
         cfg = self.cfg
         model = DBTextModel(backbone_name=cfg.model.backbone or "resnet18",
                             head_name=cfg.model.head or "DBHead",
-                            compute_dtype=self.compute_dtype)
+                            compute_dtype=self.compute_dtype,
+                            **widths_to_model_kwargs(cfg.model.widths))
         model.reset_parameters(torch.Generator().manual_seed(self.seed))
         pb = cfg.model.pretrained_backbone_path
         if pb and os.path.exists(str(pb)):
@@ -292,8 +294,9 @@ class Trainer:
 
     def resume_state(self, checkpoint_path: str) -> TrainState:
         """The full training state of a checkpoint (weights, BN statistics,
-        Adam moments, step). A ``.pth`` holds weights only: the optimizer
-        then starts afresh at step 0."""
+        Adam moments, step). A ``.pth``, or a checkpoint of weights alone
+        (``cli.prune`` writes one), holds no optimizer: it then starts
+        afresh at step 0."""
         state = self.init_state()
         if checkpoint_path.endswith(".pth"):
             state.model.load_state_dict(load_params_any(checkpoint_path),
@@ -301,8 +304,9 @@ class Trainer:
         else:
             saved = restore_checkpoint(checkpoint_path)
             state.model.load_state_dict(saved["model"], strict=True)
-            state.optimizer.load_state_dict(saved["optimizer"])
-            state.step = int(saved["step"])
+            if "optimizer" in saved:
+                state.optimizer.load_state_dict(saved["optimizer"])
+                state.step = int(saved["step"])
         self.global_step = state.step
         return state
 
@@ -442,7 +446,8 @@ class Trainer:
         policy = CheckpointPolicy(cfg.meta.root_dir or ".",
                                   cfg.model.best_cp_path,
                                   cfg.model.last_cp_path,
-                                  cfg.model.best_hmean_cp_path)
+                                  cfg.model.best_hmean_cp_path,
+                                  widths=cfg.model.widths)
         history = []
         for epoch in range(epochs):
             state, train_loss, _, _ = self.train_epoch(state, epoch)

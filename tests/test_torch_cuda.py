@@ -599,3 +599,58 @@ def test_int8_forward_on_the_card_matches_the_cpu(float_convs, device):
         fused = Q.quant_dbnet_forward(tree, x.to(device))
         plain = Q.quant_dbnet_forward(tree, x.to(device), fuse=False)
     assert torch.equal(fused, plain)
+
+
+@pytest.mark.parametrize("cin,cout", [(77, 256), (256, 154), (192, 130)])
+def test_padded_int8_conv2d_on_the_card_matches_the_cpu(cin, cout, device):
+    """Pruned widths leave K = 9*Cin or N = Cout off the multiples of 8
+    that cuBLASLt's int8 GEMM takes (layer 3's conv2 at Cin 77, layer 4's
+    conv1 at 154 outputs, an FPN output conv of 130): the zero-padded
+    column matrix (``pad_cols``) on the card gives the CPU's unpadded
+    result, exactly."""
+    g = torch.Generator().manual_seed(cin + cout)
+    q = torch.randint(-127, 128, (2, 20, 20, cin), generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (cout, 9 * cin), generator=g,
+                      dtype=torch.int8)
+    padded = torch.from_numpy(I.pad_cols(w.numpy()))
+    assert padded.shape[0] % 8 == 0 and padded.shape[1] % 8 == 0
+    ref = I.int8_conv2d(q, w, 3, 1, 1)
+    got = I.int8_conv2d(q.to(device), padded.to(device), 3, 1, 1)
+    assert torch.equal(got[..., :cout].cpu(), ref)
+    assert not got[..., cout:].any()
+
+
+def test_int8_export_on_the_card_matches_the_live_forward(device, tmp_path):
+    """An int8 archive (symbolic batch, uint8 input, prob-only) exported
+    and loaded on the card serves batch 1 and 3 with the live int8
+    forward's maps (at most 1 % of pixels more than 1e-3 apart), and a
+    forward launches P1 17 times through the custom op."""
+    from db_text_minimal_tpu_torch.cli.common import make_folded_forward
+    from db_text_minimal_tpu_torch.models import DBTextModel
+    from db_text_minimal_tpu_torch.models.head import fuse_variables
+    from db_text_minimal_tpu_torch.serve.export import (export_model,
+                                                        load_exported)
+    from db_text_minimal_tpu_torch.utils import CAFFE_MEAN
+
+    model = DBTextModel()
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    sd = fuse_variables(model.state_dict())
+    path = export_model(sd, str(tmp_path / "db.pt2"),
+                        input_shape=(None, 128, 128, 3), infer_mode="int8",
+                        prob_only=True, device=device)
+    infer = load_exported(path, device=device)
+    live = make_folded_forward(sd, quantize=True, prob_only=True,
+                               device=device)
+    mean = torch.tensor(CAFFE_MEAN, device=device)
+    g = torch.Generator().manual_seed(1)
+    for batch in (1, 3):
+        x = torch.randint(0, 256, (batch, 128, 128, 3), generator=g,
+                          dtype=torch.uint8).to(device)
+        I.reset_launches()
+        got = infer(x)
+        torch.cuda.synchronize()
+        assert I.LAUNCHES["int8_epilogue"] == 17
+        ref = live(x.float() - mean)
+        assert got.shape == ref.shape == (batch, 128, 128, 1)
+        assert ((got - ref).abs() > 1e-3).float().mean().item() <= 0.01

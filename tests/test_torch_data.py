@@ -23,6 +23,7 @@ from db_text_minimal_tpu_torch import config, lr_schedules
 from db_text_minimal_tpu_torch.data import datasets, labels
 from db_text_minimal_tpu_torch.data.scenes import text_batch
 from db_text_minimal_tpu_torch.metrics import QuadMetric, RunningScore
+from db_text_minimal_tpu_torch.models.prune import load_widths
 from db_text_minimal_tpu_torch.ops import geometry as geo
 from db_text_minimal_tpu_torch.train import checkpoints
 from db_text_minimal_tpu_torch.train import trainer as T
@@ -183,29 +184,35 @@ def test_loader_matches_jax(shuffle, prefetch):
 
 
 def test_checkpoint_policy_writes_the_same_files_as_jax(tmp_path):
+    """Both policies save the same checkpoints on the same series, and
+    with a pruned model's widths the same ``.widths.json`` sidecars."""
     series = [(3.0, 2.5, 0.1), (2.0, 2.6, 0.05), (1.5, 2.0, 0.3),
               (1.6, 1.9, 0.3), (1.4, 1.8, 0.2)]
     names = ("models/best.ckpt", "models/last.ckpt", "models/hmean.ckpt")
-    written = []
-    for root, policy_cls, state in (
-            (tmp_path / "jax", jax_checkpoints.CheckpointPolicy,
-             {"step": np.int32(1)}),
-            (tmp_path / "port", checkpoints.CheckpointPolicy, {"step": 1})):
-        policy = policy_cls(str(root), *names)
-        saves = [policy.on_epoch_end(state, train_loss=a, test_loss=b,
-                                     hmean=c, epoch=i)
-                 for i, (a, b, c) in enumerate(series)]
-        policy.on_train_end(state, len(series))
-        written.append(([[os.path.relpath(p, root) for p in s]
-                         for s in saves],
-                        sorted(os.listdir(root / "models"))))
-    assert written[0] == written[1]
-    assert written[1][1] == sorted(
-        [n.split("/")[1] for n in names]
-        + [n.split("/")[1] + ".json" for n in names])
-    with pytest.raises(NotImplementedError, match="pruned"):
-        checkpoints.CheckpointPolicy(str(tmp_path), *names,
-                                     widths={"fpn_out": 64})
+    for widths in (None, {"fpn_out": 64, "head_width": 64}):
+        tag = "widths" if widths else "plain"
+        written = []
+        for root, policy_cls, state in (
+                (tmp_path / tag / "jax", jax_checkpoints.CheckpointPolicy,
+                 {"step": np.int32(1)}),
+                (tmp_path / tag / "port", checkpoints.CheckpointPolicy,
+                 {"step": 1})):
+            policy = policy_cls(str(root), *names, widths=widths)
+            saves = [policy.on_epoch_end(state, train_loss=a, test_loss=b,
+                                         hmean=c, epoch=i)
+                     for i, (a, b, c) in enumerate(series)]
+            policy.on_train_end(state, len(series))
+            written.append(([[os.path.relpath(p, root) for p in s]
+                             for s in saves],
+                            sorted(os.listdir(root / "models"))))
+            if widths:
+                for name in names:
+                    assert load_widths(str(root / name)) == widths
+        assert written[0] == written[1]
+        sidecars = [".json"] + ([".widths.json"] if widths else [])
+        assert written[1][1] == sorted(
+            [n.split("/")[1] for n in names]
+            + [n.split("/")[1] + ext for n in names for ext in sidecars])
 
 
 def test_saved_state_restores_bit_equal(tmp_path):

@@ -465,17 +465,26 @@ def test_checkpoint_saved_before_final_eval(tmp_path, monkeypatch):
 
 
 def test_pruned_widths_raise_through_the_trainer(tmp_path):
+    """A pruned checkpoint's sidecar reaches the configuration and, since
+    pruning is ported, the Trainer: ``--eval_only`` builds the narrow
+    model (the head at width 32) and evaluates it."""
+    from db_text_minimal_tpu_torch.models import DBTextModel
+
     syn.generate(str(tmp_path / "ds"), n_train=1, n_test=1, size=64,
                  seed=1)
-    ckpt = str(tmp_path / "p.ckpt")
+    ckpt = str(tmp_path / "p.pth")
+    model = DBTextModel(head_width=32)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), ckpt)
     with open(ckpt + ".widths.json", "w") as f:
         json.dump({"head_width": 32}, f)
     args = qb.load_args(_bench_argv(tmp_path / "ds", tmp_path / "m.json",
                                     "--eval_only", "--checkpoint", ckpt,
                                     "--device", "cpu"))
     assert qb.build_cfg(args).model.widths == {"head_width": 32}
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        qb.main(args)
+    report = qb.main(args)
+    assert report["config"]["checkpoint"] == ckpt
+    assert set(report["results"]) == {"host", "device", "n_test_images"}
 
 
 # ------------------------------------------------------------ cli.train --

@@ -44,9 +44,11 @@ print(len(names))
     *names, count = proc.stdout.split()
     for module in ("data.augment", "data.datasets", "data.synthetic",
                    "data.text_engine", "cli.train", "cli.make_synthetic",
-                   "cli.quality_bench", "cli.record_text_engine"):
+                   "cli.quality_bench", "cli.record_text_engine",
+                   "models.prune", "cli.prune", "cli.export",
+                   "serve.export", "serve.client"):
         assert f"db_text_minimal_tpu_torch.{module}" in names
-    assert int(count) >= 48
+    assert int(count) >= 53
 
 
 def test_port_sources_name_no_jax_import():
@@ -95,3 +97,18 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(train.load_args(["--config", str(tmp_path / "none.yaml"),
                                     "--epochs", "1"]))
+    from db_text_minimal_tpu_torch.cli import export, prune
+    from db_text_minimal_tpu_torch.serve.export import (export_model,
+                                                        load_exported)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prune.main(prune.load_args(["--checkpoint", path, "--out",
+                                    str(tmp_path / "p.pth")]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export.main(["--model_path", path, "--out", str(tmp_path / "m.pt2")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_model({}, str(tmp_path / "m.pt2"), infer_mode="folded")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_exported(str(tmp_path / "m.pt2"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DBTextDetectionHandler(str(tmp_path / "m.pt2"))
