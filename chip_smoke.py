@@ -112,6 +112,21 @@ Phases, one output line each (or more), stopping at the first failure:
              finite P/R/F. Logs the generation, train and eval times, each
              row's postprocess time, the loader's share of the epoch and
              the host ms of a training sample.
+11. ocr    - the recognizer and the OCR path at full width (output channel
+             512, hidden 256, 32x100 crops, batch_max_length 25): word
+             crops exported from the quality set's train split; three
+             recognizers with seeded weights (None/VGG/BiLSTM/CTC, the
+             base; None/ResNet/BiLSTM/Attn, cli.ocr's default;
+             TPS/RCNN/BiLSTM/CTC) held card against CPU on a batch of 64
+             crops (logits within REC_TOL, greedy strings equal where
+             every top-2 margin exceeds it), each forward timed; 12 train
+             steps at batch 32 of the base and of the Attn recognizer
+             (finite losses, the last 10 steps timed); then cli.train_rec
+             for 2 epochs (base), rec_bench --mode rec and --mode e2e on
+             the quality set with its quality.ckpt detector (reports with
+             JAX's keys, total > 0), and cli.ocr.main on a test image with
+             --infer_mode int8 (P1 must launch), its detect and crop stages
+             timed, and its recognize stage on the image's GT crops.
 
 Every kernel time is taken with the 50 MB L2 flushed before each call
 (``flush_l2``), as a caller that did other work in between finds it; the
@@ -216,6 +231,22 @@ REPORT_KEYS = ["config", "train_wall_s", "eval_wall_s", "history",
 CONFIG_KEYS = ["eval_only", "checkpoint", "train_config", "thresh",
                "box_thresh", "unclip_ratio", "n_train", "n_test", "backend",
                "compute_dtype", "quant", "quant_head"]
+
+
+# the ocr phase: full width, the crops of a batch, the train steps, and the
+# fp32 tolerance of the card's logits against the CPU's (absolute; seeded
+# random weights give logits under ~0.5)
+REC_WIDTH = {"output_channel": 512, "hidden_size": 256,
+             "batch_max_length": 25}
+REC_CONFIGS = (("None", "VGG", "BiLSTM", "CTC"),
+               ("None", "ResNet", "BiLSTM", "Attn"),
+               ("TPS", "RCNN", "BiLSTM", "CTC"))
+REC_BATCH, REC_TRAIN_BATCH, REC_STEPS, REC_TOL = 64, 32, 12, 1e-4
+REC_KEYS = ["mode", "distort", "word_accuracy", "correct", "total",
+            "mean_confidence", "sample_errors"]
+E2E_KEYS = ["mode", "n_images", "n_gt_words", "n_detections",
+            "det_precision", "det_recall", "det_hmean", "e2e_precision",
+            "e2e_recall", "e2e_hmean"]
 
 
 # the counter a row's kernel adds to, where it is not the row's own name
@@ -1961,6 +1992,216 @@ def phase_quality(workdir: str) -> dict:
     return launches
 
 
+def median_ms(fn, reps: int = 11) -> float:
+    """Median milliseconds of ``fn`` on the card over ``reps`` runs after
+    two warm-up runs, from CUDA events around each run."""
+    for _ in range(2):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def rec_model(stages, device: str):
+    """A full-width recognizer of ``stages`` with the seeded weights."""
+    from db_text_minimal_tpu_torch.models.recognition import \
+        RecognitionModel
+
+    model = RecognitionModel(37 if stages[3] == "CTC" else 38, *stages,
+                             **REC_WIDTH)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    return model.to(device).flatten_parameters().eval()
+
+
+def phase_ocr(workdir: str) -> dict:
+    """The recognizer and the OCR path at full width, on the quality
+    phase's hard set and its ``quality.ckpt`` detector (see the module).
+    Returns P1's launches in cli.ocr's int8 run."""
+    import cv2
+
+    from db_text_minimal_tpu_torch.cli import ocr, rec_bench, train_rec
+    from db_text_minimal_tpu_torch.data.synthetic import export_word_crops
+    from db_text_minimal_tpu_torch.models.recognition import (
+        AttnLabelConverter, CTCLabelConverter)
+    from db_text_minimal_tpu_torch.train import recognition_trainer as RT
+    from db_text_minimal_tpu_torch.utils import read_img, test_preprocess
+
+    t_phase = t0 = time.perf_counter()
+    data_dir = os.path.join(workdir, "hard")
+    section = {"train_dir": os.path.join(data_dir, "train_images"),
+               "train_gt_dir": os.path.join(data_dir, "train_gts")}
+    crop_dir = export_word_crops(section, os.path.join(workdir, "crops"))
+    export_s = time.perf_counter() - t0
+    base = ["--FeatureExtraction", "VGG", "--Prediction", "CTC"]
+    images, texts = train_rec.load_crop_dataset(train_rec.load_args(
+        ["--crop_dir", crop_dir] + base))
+    if len(texts) < max(REC_BATCH, REC_TRAIN_BATCH * REC_STEPS // 4):
+        raise AssertionError(f"ocr: only {len(texts)} crops exported")
+    batch = images[:REC_BATCH]
+
+    rows = {}
+    for stages in REC_CONFIGS:
+        name = "/".join(stages)
+        gpu, cpu = rec_model(stages, "cuda"), rec_model(stages, "cpu")
+        x = torch.from_numpy(batch)
+        with torch.inference_mode():
+            got = gpu(x.cuda()).float().cpu()
+            ref = cpu(x)
+        gap = (got - ref).abs().max().item()
+        if not gap <= REC_TOL:
+            raise AssertionError(f"ocr {name}: card logits {gap} from the "
+                                 f"CPU's (tolerance {REC_TOL})")
+        top2 = ref.topk(2, dim=-1).values
+        sure = ((top2[..., 0] - top2[..., 1]) > REC_TOL).all(dim=1)
+        same = (got.argmax(-1) == ref.argmax(-1)).all(dim=1)
+        if not bool(same[sure].all()):
+            raise AssertionError(f"ocr {name}: greedy strings differ where "
+                                 f"every margin exceeds {REC_TOL}")
+        xc = x.cuda()
+        with torch.inference_mode():
+            ms = median_ms(lambda: gpu(xc))
+        rows[name] = {"logit_gap": gap, "max_abs_logit":
+                      ref.abs().max().item(), "sure_rows": int(sure.sum()),
+                      "forward_ms_b64": ms,
+                      "crops_per_s": REC_BATCH / ms * 1e3}
+        if gpu.transformation is not None:
+            # the TPS stage alone, and its sampler on the grid it made
+            xn = xc.permute(0, 3, 1, 2)
+            with torch.inference_mode():
+                rows[name]["tps_ms_b64"] = median_ms(
+                    lambda: gpu.transformation(xn))
+                loc = gpu.transformation.localization(xn)
+                grid = torch.matmul(gpu.transformation.phat(32, 100, "cuda"),
+                                    torch.matmul(
+                                        gpu.transformation.inv_delta,
+                                        torch.nn.functional.pad(
+                                            loc, (0, 0, 0, 3))))
+                grid = grid.reshape(-1, 32, 100, 2)
+                rows[name]["grid_sample_ms_b64"] = median_ms(
+                    lambda: torch.nn.functional.grid_sample(
+                        xn, grid, align_corners=True))
+        del gpu, cpu
+
+    train_ms = {}
+    for stages in (REC_CONFIGS[0], REC_CONFIGS[1]):
+        conv = (CTCLabelConverter if stages[3] == "CTC"
+                else AttnLabelConverter)("0123456789abcdefghijklmnopqrst"
+                                         "uvwxyz")
+        state = RT.init_rec_state(rec_model(stages, "cpu"), seed=SEED,
+                                  device="cuda")
+        step = RT.build_rec_train_step(state)
+        targets, lengths = conv.encode(texts, 25)
+        times, losses = [], []
+        for k in range(REC_STEPS):
+            sl = slice(k * REC_TRAIN_BATCH, (k + 1) * REC_TRAIN_BATCH)
+            args = [torch.from_numpy(a[sl]).cuda()
+                    for a in (images, targets, lengths)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(*args, 1e-3)))
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"ocr train {stages}: losses {losses}")
+        train_ms["/".join(stages)] = {
+            "step_ms_b32": float(np.median(times[2:])),
+            "loss_first": losses[0], "loss_last": losses[-1]}
+        del state, step
+
+    rec_ckpt = os.path.join(workdir, "rec.ckpt")
+    t0 = time.perf_counter()
+    train_rec.main(train_rec.load_args(
+        ["--crop_dir", crop_dir, "--out", rec_ckpt, "--epochs", "2"] + base))
+    train_rec_s = time.perf_counter() - t0
+    bench = ["--data_dir", data_dir, "--saved_model", rec_ckpt] + base
+    t0 = time.perf_counter()
+    rec = rec_bench.main(rec_bench.load_args(
+        ["--mode", "rec", "--out", os.path.join(workdir, "rec.json")]
+        + bench))
+    rec_s = time.perf_counter() - t0
+    det_ckpt = os.path.join(workdir, "quality.ckpt")
+    t0 = time.perf_counter()
+    e2e = rec_bench.main(rec_bench.load_args(
+        ["--mode", "e2e", "--det_model_path", det_ckpt, "--out",
+         os.path.join(workdir, "e2e.json")] + bench))
+    e2e_s = time.perf_counter() - t0
+    if list(rec) != REC_KEYS or list(e2e) != E2E_KEYS:
+        raise AssertionError(f"ocr: report keys {list(rec)}, {list(e2e)}")
+    if not (rec["total"] > 0 and e2e["n_gt_words"] > 0):
+        raise AssertionError(f"ocr: empty reports {rec}, {e2e}")
+    for key in ("word_accuracy", "det_hmean", "e2e_hmean"):
+        value = rec.get(key, e2e.get(key))
+        if not 0.0 <= value <= 1.0:
+            raise AssertionError(f"ocr: {key} {value}")
+
+    image = os.path.join(data_dir, "test_images",
+                         sorted(os.listdir(os.path.join(data_dir,
+                                                        "test_images")))[0])
+    opt = ocr.load_args(["--img_path", image, "--det_model_path", det_ckpt,
+                         "--saved_model", rec_ckpt, "--infer_mode", "int8",
+                         "--out_path", os.path.join(workdir, "ocr.jpg")]
+                        + base)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        reset_all_launches()
+        results = ocr.main(opt)
+        torch.cuda.synchronize()
+        p1 = dict(I8.LAUNCHES)
+        if sum(p1.values()) == 0:
+            raise AssertionError(f"ocr --infer_mode int8: P1 never "
+                                 f"launched {p1}")
+        # the stages, timed apart: the int8 detector's forward, the host
+        # postprocess and warps, and the per-crop recognition, this on the
+        # image's GT words (the one-epoch detector may find none)
+        model, det_fwd = build_inference_forward(det_ckpt,
+                                                 infer_mode="int8")
+        converter = ocr.build_converter(opt)
+        recognizer = ocr.load_rec_model(opt, len(converter.character))
+        img, h, w = read_img(image)
+        gt_crops = [rec_bench._warp_crop(img, poly) for poly, _ in
+                    next(rec_bench._test_words(rec_bench.load_args(
+                        ["--mode", "rec", "--out", "x", "--limit", "1"]
+                        + bench)))[1]]
+        stages_ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            det_fwd(test_preprocess(img)).cpu()
+            t1 = time.perf_counter()
+            ocr.detect_and_crop(opt, model, img, h, w, forward=det_fwd)
+            t2 = time.perf_counter()
+            ocr.recognize_crops(opt, gt_crops, converter, recognizer)
+            t3 = time.perf_counter()
+            stages_ms.append(((t1 - t0) * 1e3, (t2 - t1 - (t1 - t0)) * 1e3,
+                              (t3 - t2) * 1e3 / len(gt_crops)))
+    finally:
+        os.chdir(cwd)
+    detect_ms, crop_ms, recognize_ms = np.median(stages_ms[1:], axis=0)
+    if cv2.imread(os.path.join(workdir, "ocr.jpg")) is None:
+        raise AssertionError("ocr: no output image")
+    log(f"ocr ok: {len(texts)} crops exported in {export_s:.2f} s; "
+        f"card vs CPU at batch {REC_BATCH}, full width "
+        f"{json.dumps(REC_WIDTH)}: {json.dumps(rows)}; train steps at "
+        f"batch {REC_TRAIN_BATCH} (median of the last "
+        f"{REC_STEPS - 2}): {json.dumps(train_ms)}; train_rec 2 epochs "
+        f"{train_rec_s:.2f} s; rec_bench rec {rec_s:.2f} s "
+        f"{json.dumps(rec)}; e2e {e2e_s:.2f} s {json.dumps(e2e)}; cli.ocr "
+        f"int8 on {os.path.basename(image)}: {len(results)} words, P1 "
+        f"launches {json.dumps(p1)}; stages (median of 3 after one): "
+        f"detect {detect_ms:.2f} ms, crop {crop_ms:.2f} ms, recognize "
+        f"{recognize_ms:.2f} ms a crop, one forward each ({len(gt_crops)} "
+        f"GT crops of the image); the phase took "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    return p1
+
+
 def check_prf(what, loss, precision, recall, hmean) -> None:
     prf = (precision, recall, hmean)
     if not (np.isfinite(loss)
@@ -2050,6 +2291,7 @@ def main() -> int:
             phase_check_polygon()
             phase_check_train(workdir)
             phase_quality(workdir)
+            ocr_p1 = phase_ocr(workdir)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2069,6 +2311,7 @@ def main() -> int:
         row["launches_in"] = f"train: {TRAIN_STEPS} steps"
     for row in int8_rows:
         row["launches"] = p1_launches[row["name"]]
+        row["launches_ocr"] = ocr_p1[row["name"]]
         row["launches_in"] = (f"quant: the int8 handler's box and masks "
                               f"forwards and the static forward's, batch "
                               f"of {N}")

@@ -9,8 +9,10 @@ line-level CTW1500 form). Every draw from the ``RandomState`` happens in the
 JAX module's order and every label is written with ``{v:.1f}``, so a seed
 gives the same images and GT files as the JAX package. The glyphs are
 measured and drawn through a text engine object (``data.text_engine``),
-cv2's own unless a recorded one is given. The glyph dataset
-and word crops of the recognizer wait for ROADMAP queue 1 item 5.
+cv2's own unless a recorded one is given. For the recognizer:
+``generate_glyphs`` (words of real glyph strings with their transcriptions)
+and ``export_word_crops`` (the GT words of a dataset's train split, warped
+to 32x100 by the geometry library, with ``labels.txt``).
 """
 
 from __future__ import annotations
@@ -96,6 +98,132 @@ def _render_sample(rng: np.random.RandomState, size: int = 640,
                      (230, 230, 235), 2)
         polys.append(box)
     return img, polys
+
+
+def _render_glyph_sample(rng: np.random.RandomState, size: int = 640,
+                         max_words: int = 6, charset: str = "0123456789",
+                         engine=CV2_TEXT):
+    """Sample with real rendered text (Hershey glyphs, measured and drawn
+    by the text engine ``engine``) so the recognizer can be trained end to
+    end on synthetic data. Returns (image, [(poly, text), ...])."""
+    import cv2
+
+    img = np.full((size, size, 3),
+                  rng.randint(140, 210, size=3, dtype=np.uint8), np.uint8)
+    noise = rng.randint(0, 25, size=(size, size, 3), dtype=np.uint8)
+    img = cv2.add(img, noise)
+    words = []
+    n_words = rng.randint(2, max_words + 1)
+    tries = 0
+    while len(words) < n_words and tries < 60:
+        tries += 1
+        text = "".join(rng.choice(list(charset))
+                       for _ in range(rng.randint(3, 8)))
+        font_scale = rng.uniform(1.2, 2.2)
+        thickness = 2 + int(font_scale)
+        (tw, th), baseline = engine.text_size(
+            text, cv2.FONT_HERSHEY_SIMPLEX, font_scale, thickness)
+        if tw + 20 >= size or th + 20 >= size:
+            continue
+        x = rng.randint(6, size - tw - 8)
+        y = rng.randint(th + 8, size - baseline - 8)
+        box = np.array([[x - 4, y - th - 4], [x + tw + 4, y - th - 4],
+                        [x + tw + 4, y + baseline + 4],
+                        [x - 4, y + baseline + 4]], np.float64)
+        if any(not (box[:, 0].max() < p[:, 0].min() - 8
+                    or box[:, 0].min() > p[:, 0].max() + 8
+                    or box[:, 1].max() < p[:, 1].min() - 8
+                    or box[:, 1].min() > p[:, 1].max() + 8)
+               for p, _ in words):
+            continue
+        engine.put_text(img, text, (x, y), cv2.FONT_HERSHEY_SIMPLEX,
+                        font_scale, (20, 20, 25), thickness)
+        words.append((box, text))
+    return img, words
+
+
+def generate_glyphs(out_dir: str, n_train: int = 16, n_test: int = 4,
+                    size: int = 640, seed: int = 0,
+                    charset: str = "0123456789", text_engine=None) -> dict:
+    """TotalText-format dataset whose words are real rendered glyph strings
+    with true transcriptions in the label column: trains the detector and
+    the recognizer end to end. The same seed gives the JAX package's images
+    and GT under the same cv2."""
+    rng = np.random.RandomState(seed)
+    engine = text_engine or CV2_TEXT
+
+    def sample():
+        img, words = _render_glyph_sample(rng, size=size, charset=charset,
+                                          engine=engine)
+        lines = [f"{_coords(poly)},{text}" for poly, text in words]
+        engine.end_image(img, lines)
+        return img, lines
+
+    dirs = _write_dataset(out_dir, n_train, n_test, 1000, sample,
+                          "gt_img{}.txt")
+    return {**dirs, "ignore_tags": ["###"]}
+
+
+def export_word_crops(section: dict, out_dir: str, img_h: int = 32,
+                      img_w: int = 100, jitter_copies: int = 4,
+                      seed: int = 0) -> str:
+    """Cut the GT word crops of ``section``'s train split, perspective-
+    rectified to ``img_w`` x ``img_h`` by the geometry library, and write
+    them with a ``labels.txt``: the training data of ``cli/train_rec``.
+    Each word is exported ``jitter_copies`` times, all but the first with a
+    random margin and corner jitter, so the recognizer learns the framing
+    of the detector's unclipped boxes. A GT polygon of other than 4 points
+    (a curved word) is rectified through its min-area rect, ordered
+    clockwise from the top left, the transform ``cli/rec_bench._warp_crop``
+    applies to detections. Ignore-tagged words are skipped."""
+    import cv2
+
+    from ..ops import geometry as geo
+    from ..postprocess import order_rect_points
+    from .parsers import load_totaltext
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    fps, anns = load_totaltext(section["train_dir"],
+                               section["train_gt_dir"])
+    dst = np.array([[0, 0], [img_w, 0], [img_w, img_h], [0, img_h]],
+                   np.float64)
+    lines = []
+    count = 0
+    for fp, ann in zip(fps, anns):
+        img = cv2.imread(fp)[:, :, ::-1]
+        for item in ann:
+            if item.get("text") == "###":
+                continue
+            poly = np.asarray(item["poly"], np.float64)
+            if len(poly) != 4:
+                try:
+                    rect, _ = geo.min_area_rect(poly)
+                except ValueError:
+                    continue
+                poly = np.asarray(order_rect_points(np.asarray(rect)),
+                                  np.float64)
+            center = poly.mean(axis=0)
+            for copy in range(jitter_copies):
+                if copy == 0:
+                    box = poly
+                else:
+                    # random expansion (unclip-like) + corner jitter
+                    grow = 1.0 + rng.uniform(0.0, 0.35)
+                    box = (poly - center) * grow + center
+                    box = box + rng.uniform(-3, 3, poly.shape)
+                try:
+                    matrix = geo.get_perspective_transform(box, dst)
+                except ValueError:
+                    continue
+                warp = geo.warp_perspective(img, matrix, (img_w, img_h))
+                fname = f"crop_{count}.jpg"
+                cv2.imwrite(os.path.join(out_dir, fname), warp[:, :, ::-1])
+                lines.append(f"{fname}\t{item['text']}")
+                count += 1
+    with open(os.path.join(out_dir, "labels.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return out_dir
 
 
 _UPPER = "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"

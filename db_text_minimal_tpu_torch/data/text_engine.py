@@ -2,7 +2,10 @@
 
 ``data/synthetic.py`` measures and draws its glyphs only through
 ``cv2.getTextSize`` and a pair of ``cv2.putText`` calls (the glyph in its
-colour on zeros, and its mask in 255 on zeros). Those depend on cv2's
+colour on zeros, and its mask in 255 on zeros); the glyph set of the
+recognizer (``generate_glyphs``) draws its words straight onto the image
+(``put_text``, which only ``CV2TextEngine`` and so the recording engine
+have: no trace of the glyph set is kept). Those depend on cv2's
 version: 4.x and 5.x size and draw the Hershey glyphs differently, so one
 seed makes other words under each, and the hard benchmark's committed GT
 (``demo/hard_bench/result_poly_gts.pkl``, made under cv2 5.0.0) checks only
@@ -89,6 +92,14 @@ class CV2TextEngine:
         cv2.putText(patch, text, org, font, scale, color, thickness)
         cv2.putText(mask, text, org, font, scale, 255, thickness)
         return patch, mask
+
+    def put_text(self, img: np.ndarray, text: str, org: tuple, font: int,
+                 scale: float, color: tuple, thickness: int) -> None:
+        """``cv2.putText`` onto ``img`` in place (cv2 5.x blends the
+        antialiased glyph over what is there)."""
+        import cv2
+
+        cv2.putText(img, text, org, font, scale, color, thickness)
 
     def end_image(self, img: np.ndarray, lines: list[str]) -> None:
         """Called by a generator after each image, before its encode."""

@@ -6,7 +6,10 @@ DetEval metrics need: polygon area, perimeter and simplicity, the
 Clipper-style round-join offset (shrink, dilate, unclip), ``min_area_rect``,
 ``approx_poly_dp`` (Douglas-Peucker), ``find_contours``,
 ``fill_poly``, the border distance field of the threshold map, and polygon
-intersection and union areas. The shared library is compiled with g++ at
+intersection and union areas, and what the OCR path needs: the convex
+hull, the perspective transform of four point pairs and the bilinear
+perspective warp (``cv2.getPerspectiveTransform`` and
+``cv2.warpPerspective``). The shared library is compiled with g++ at
 first use into the port's build directory.
 """
 
@@ -66,6 +69,15 @@ def load_library() -> ctypes.CDLL:
             lib.geo_border_distance_field.argtypes = [
                 c_dp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_double, c_fp]
+            lib.geo_convex_hull.restype = ctypes.c_int
+            lib.geo_convex_hull.argtypes = [c_dp, ctypes.c_int, c_dp,
+                                            ctypes.c_int]
+            lib.geo_perspective_transform.restype = ctypes.c_int
+            lib.geo_perspective_transform.argtypes = [c_dp, c_dp, c_dp]
+            lib.geo_warp_perspective.restype = None
+            lib.geo_warp_perspective.argtypes = [
+                c_u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, c_dp, c_u8p,
+                ctypes.c_int, ctypes.c_int]
             _lib = lib
     return _lib
 
@@ -115,6 +127,14 @@ def union_area(poly_a, poly_b) -> float:
     """Area of the union of two simple polygons (inclusion-exclusion)."""
     return (polygon_area(poly_a) + polygon_area(poly_b)
             - intersection_area(poly_a, poly_b))
+
+
+def convex_hull(points) -> np.ndarray:
+    """The convex hull of ``points`` as a (M, 2) float64 array."""
+    p = _as_poly(points)
+    out = np.empty((len(p) + 1, 2), dtype=np.float64)
+    m = load_library().geo_convex_hull(_dp(p), len(p), _dp(out), len(out))
+    return out[:m]
 
 
 def min_area_rect(points):
@@ -255,3 +275,36 @@ def border_distance_field(poly, height: int, width: int,
         _dp(p), len(p), height, width, float(norm),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
     return out
+
+
+def get_perspective_transform(src_pts, dst_pts) -> np.ndarray:
+    """cv2.getPerspectiveTransform equivalent: the 3x3 float64 matrix that
+    maps the four ``src_pts`` onto the four ``dst_pts``. Raises
+    ``ValueError`` on a degenerate (collinear) configuration."""
+    src = _as_poly(src_pts)
+    dst = _as_poly(dst_pts)
+    out = np.empty((3, 3), dtype=np.float64)
+    if not load_library().geo_perspective_transform(_dp(src), _dp(dst),
+                                                    _dp(out)):
+        raise ValueError("degenerate point configuration")
+    return out
+
+
+def warp_perspective(image: np.ndarray, matrix: np.ndarray,
+                     out_size: tuple[int, int]) -> np.ndarray:
+    """cv2.warpPerspective equivalent (bilinear, zero border) of an HWC or
+    HW uint8 image; ``out_size`` is (width, height) as in cv2."""
+    img = np.ascontiguousarray(image.astype(np.uint8))
+    if img.ndim == 2:
+        img = img[:, :, None]
+    h, w, c = img.shape
+    ow, oh = out_size
+    m = np.ascontiguousarray(matrix.astype(np.float64)).reshape(9)
+    dst = np.zeros((oh, ow, c), dtype=np.uint8)
+    load_library().geo_warp_perspective(
+        img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w, c,
+        m.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), oh, ow)
+    if image.ndim == 2:
+        dst = dst[:, :, 0]
+    return dst

@@ -9,7 +9,10 @@ reads the model weights of such a file or of a reference-format ``.pth``
 state_dict; the JAX package's own Flax msgpack / orbax checkpoints are not
 read yet. A pruned checkpoint carries its channel widths in a
 ``<path>.widths.json`` sidecar (``models/prune``): a ``CheckpointPolicy``
-given ``widths`` writes it beside every checkpoint it saves.
+given ``widths`` writes it beside every checkpoint it saves. A recognizer
+checkpoint (``cli/train_rec``) has the same three entries, its model keys
+under ``transformation``, ``feature_extraction``, ``seq1``, ``seq2`` and
+``prediction``, which the unused-module filter leaves alone.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Shared helpers: image reading and preprocessing, device selection,
+"""Shared helpers: image reading and preprocessing, box drawing, device selection,
 seeding, logging and step timing.
 
 Counterpart of ``db_text_minimal_tpu/utils/__init__.py``, of
@@ -86,6 +86,20 @@ def filter_zero_boxes(box_list, score_list, is_output_polygon: bool):
     box_arr = np.asarray(box_list)
     keep = np.abs(box_arr.reshape(box_arr.shape[0], -1)).sum(axis=1) > 0
     return box_arr[keep], np.asarray(score_list)[keep]
+
+
+def draw_bbox(img, result, color=(255, 0, 0), thickness=3):
+    """Draw each box or polygon of ``result`` as a closed polyline on a
+    copy of the RGB image ``img`` (or of the image file it names)."""
+    import cv2
+
+    if isinstance(img, str):
+        img = cv2.imread(img)
+    img = np.ascontiguousarray(np.asarray(img).copy())
+    for point in result:
+        point = np.asarray(point).astype(int)
+        cv2.polylines(img, [point], True, color, thickness)
+    return img
 
 
 def resolve_device(device) -> torch.device:

@@ -18,6 +18,14 @@ Both head layouts convert: ``DBHead`` (``binarize``/``thresh`` branches, keys
 ``segmentation_head.conv1.weight``, ``segmentation_head.binarize_deconv1``
 ...).
 
+``rec_state_dict_from_jax`` does the same for a ``RecognitionModel``
+(``models/recognition``): conv kernels OIHW, dense kernels (in, out) ->
+(out, in), and each flax ``OptimizedLSTMCell`` into torch's packed LSTM
+weights (gate order i, f, g, o in both; flax's one bias per gate goes to
+``bias_hh`` and ``bias_ih`` is zero). A BiLSTM's ``OptimizedLSTMCell_0`` is
+its forward direction and ``OptimizedLSTMCell_1`` its backward one
+(``_reverse``).
+
 ``quant_vars_from_jax`` carries the JAX package's BN-folded and int8 tree
 into the port's ``models.quant_infer`` tree, so that both packages run the
 same int8 weights and static scales.
@@ -98,6 +106,70 @@ def state_dict_from_jax(params: Mapping[str, Any],
             sd[f"{module}.{name}"] = torch.from_numpy(
                 np.ascontiguousarray(value).copy())
     return sd
+
+
+_REC_RENAMES = (
+    # localization conv{i}/bn{i} -> blocks.{i}.conv/bn
+    (re.compile(r"^(transformation/localization)/(conv|bn)(\d)/"),
+     r"\1/blocks/\3/\2/"),
+    # GRCL bn_gf_{it} -> bn_gf.{it}
+    (re.compile(r"/(bn_(?:gf|gr|x|h))_(\d+)/"), r"/\1/\2/"),
+    # residual blocks b3_{i} -> b3.{i}
+    (re.compile(r"/(b\d)_(\d+)/"), r"/\1/\2/"),
+    # _conv_bn_relu's {name}_conv / {name}_bn -> {name}.conv / {name}.bn
+    (re.compile(r"/(\w+?)_(conv|bn)/"), r"/\1/\2/"),
+)
+_LSTM_RE = re.compile(r"^(.*)/(OptimizedLSTMCell_([01])|rnn)/(\w\w)/(\w+)$")
+
+
+def _rec_key(path: str) -> str:
+    for pattern, repl in _REC_RENAMES:
+        path = pattern.sub(repl, path)
+    return path.replace("/", ".")
+
+
+def rec_state_dict_from_jax(params: Mapping[str, Any],
+                            batch_stats: Mapping[str, Any]) -> dict:
+    """Flax ``params``/``batch_stats`` of a ``RecognitionModel`` -> torch
+    state_dict (CPU tensors) of the port's ``RecognitionModel``."""
+    sd: dict = {}
+    cells: dict = {}
+    for tree in (params, batch_stats):
+        for path, leaf, value in _leaves(tree):
+            full = "/".join(path + [leaf])
+            m = _LSTM_RE.match(full)
+            if m:
+                prefix, cell, direction, gate, kind = m.groups()
+                if cell == "rnn":     # the decoder's nn.LSTMCell
+                    key = (f"{prefix}/rnn", "")
+                else:                 # a BiLSTM's nn.LSTM
+                    key = (f"{prefix}/rnn",
+                           "_l0_reverse" if direction == "1" else "_l0")
+                cells.setdefault(key, {})[(gate, kind)] = value
+                continue
+            module = _rec_key("/".join(path) + "/")
+            if leaf == "kernel":
+                value = (np.transpose(value, (3, 2, 0, 1)) if value.ndim == 4
+                         else value.T)
+                name = "weight"
+            else:
+                name = _LEAF[leaf]
+            if leaf == "scale":
+                sd[f"{module}num_batches_tracked"] = torch.tensor(0)
+            sd[f"{module}{name}"] = value
+    for (module, suffix), gates in cells.items():
+        module = _rec_key(module + "/")
+        order = "ifgo"
+        sd[f"{module}weight_ih{suffix}"] = np.concatenate(
+            [gates[("i" + g, "kernel")] for g in order], axis=1).T
+        sd[f"{module}weight_hh{suffix}"] = np.concatenate(
+            [gates[("h" + g, "kernel")] for g in order], axis=1).T
+        bias = np.concatenate([gates[("h" + g, "bias")] for g in order])
+        sd[f"{module}bias_hh{suffix}"] = bias
+        sd[f"{module}bias_ih{suffix}"] = np.zeros_like(bias)
+    return {k: v if isinstance(v, torch.Tensor) else
+            torch.from_numpy(np.ascontiguousarray(v).copy())
+            for k, v in sd.items()}
 
 
 def quant_vars_from_jax(qvars: Mapping[str, Any]) -> dict:

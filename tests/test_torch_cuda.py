@@ -654,3 +654,69 @@ def test_int8_export_on_the_card_matches_the_live_forward(device, tmp_path):
         ref = live(x.float() - mean)
         assert got.shape == ref.shape == (batch, 128, 128, 1)
         assert ((got - ref).abs() > 1e-3).float().mean().item() <= 0.01
+
+
+REC_STAGES = [("None", "VGG", "BiLSTM", "CTC"),
+              ("None", "ResNet", "BiLSTM", "Attn"),
+              ("TPS", "RCNN", "BiLSTM", "CTC")]
+
+
+def _recognizer(stages, device):
+    from db_text_minimal_tpu_torch.cli.common import _fp32_convolutions
+    from db_text_minimal_tpu_torch.models.recognition import \
+        RecognitionModel
+
+    _fp32_convolutions()
+    model = RecognitionModel(37 if stages[3] == "CTC" else 38, *stages,
+                             output_channel=128, hidden_size=64,
+                             batch_max_length=10)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model.to(device).flatten_parameters()
+
+
+@pytest.mark.parametrize("stages", REC_STAGES, ids="-".join)
+def test_recognizer_forward_on_the_card_matches_the_cpu(stages, device):
+    """Seeded recognizer weights, fp32 with TF32 off: the card's logits
+    within 1e-4 of the CPU's (the logits of random weights are under 1)."""
+    x = torch.rand((8, 32, 100, 1), generator=torch.Generator()
+                   .manual_seed(1)) * 2 - 1
+    with torch.no_grad():
+        got = _recognizer(stages, device).eval()(x.to(device)).cpu()
+        ref = _recognizer(stages, "cpu").eval()(x)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("pred", ["CTC", "Attn"])
+def test_recognizer_train_step_on_the_card_matches_the_cpu(pred, device):
+    """One train step from the same seeded weights and batch: the loss at
+    rtol 1e-4, each gradient within 1e-3 of its leaf's max |g| (cuDNN's
+    LSTM and CTC backward sum in other orders, the CTC one not
+    deterministically), the BN statistics at atol 1e-5 + rtol 1e-4."""
+    from db_text_minimal_tpu_torch.train import recognition_trainer as RT
+
+    stages = ("None", "VGG", "BiLSTM", pred)
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand((4, 32, 100, 1), generator=g) * 2 - 1
+    n_class = 37 if pred == "CTC" else 38
+    targets = torch.randint(1, n_class, (4, 12), generator=g,
+                            dtype=torch.int32)
+    lengths = torch.tensor([3, 5, 8, 10], dtype=torch.int32)
+    results = []
+    for dev in (device, torch.device("cpu")):
+        model = _recognizer(stages, dev)
+        state = RT.RecTrainState(model, torch.optim.Adam(
+            [p for p in model.parameters() if p.requires_grad]))
+        loss = RT.build_rec_train_step(state)(
+            x.to(dev), targets.to(dev), lengths.to(dev), 1e-3)
+        results.append((loss.item(),
+                        {n: p.grad.cpu() for n, p in
+                         model.named_parameters() if p.grad is not None},
+                        {k: v.cpu() for k, v in model.state_dict().items()
+                         if "running" in k}))
+    (loss_c, grads_c, stats_c), (loss_h, grads_h, stats_h) = results
+    assert loss_c == pytest.approx(loss_h, rel=1e-4)
+    for name, ref in grads_h.items():
+        scale = max(ref.abs().max().item(), 1e-6)
+        assert (grads_c[name] - ref).abs().max().item() <= 1e-3 * scale, name
+    for name, ref in stats_h.items():
+        torch.testing.assert_close(stats_c[name], ref, rtol=1e-4, atol=1e-5)

@@ -46,9 +46,11 @@ print(len(names))
                    "data.text_engine", "cli.train", "cli.make_synthetic",
                    "cli.quality_bench", "cli.record_text_engine",
                    "models.prune", "cli.prune", "cli.export",
-                   "serve.export", "serve.client"):
+                   "serve.export", "serve.client", "models.recognition",
+                   "train.recognition_trainer", "cli.ocr", "cli.rec_bench",
+                   "cli.train_rec"):
         assert f"db_text_minimal_tpu_torch.{module}" in names
-    assert int(count) >= 53
+    assert int(count) >= 58
 
 
 def test_port_sources_name_no_jax_import():
@@ -112,3 +114,14 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path):
         load_exported(str(tmp_path / "m.pt2"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DBTextDetectionHandler(str(tmp_path / "m.pt2"))
+    from db_text_minimal_tpu_torch.cli import ocr, rec_bench, train_rec
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ocr.main(ocr.load_args(["--img_path", str(tmp_path / "x.jpg"),
+                                "--det_model_path", path]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rec_bench.main(rec_bench.load_args(
+            ["--mode", "rec", "--data_dir", str(tmp_path), "--out",
+             str(tmp_path / "r.json"), "--saved_model", path]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_rec.main(train_rec.load_args(["--crop_dir", str(tmp_path)]))
