@@ -90,6 +90,23 @@ Phases, one output line each (or more), stopping at the first failure:
              mode, on the host as in the JAX trainer) and the quality
              bench's full_eval with its four rows (host and device, rect and
              polygon; K3-K7 must launch); P, R, F lie in [0, 1].
+8b. families - every other detector family the JAX package builds, at
+             full width, 640x640, weights from a seed (offset branches
+             drawn from N(0, 0.01), BN statistics calibrated to the served
+             batch on the card): resnet34, resnet50, deformable_resnet18,
+             deformable_resnet50, resnet101 and resnet152 with FPN +
+             DBHead, and resnet18 with FPEM_FFM + DBHead, each saved as a
+             .pth, loaded by load_model (bf16 and fp32) and served in box
+             mode through DBTextDetectionHandler(forward=...) (K3-K6 must
+             launch), bf16 maps within a mean 0.02 of fp32's, the forward
+             at batch 8 timed in both by CUDA events; deformable_resnet50
+             and resnet18 + FPEM_FFM one fp32 forward on the card against
+             the CPU (TF32 off, max abs 1e-4), three bf16 train steps at
+             batch 4 (K2 each step, finite losses, the offsets move under
+             dcn_offset_lr_mult 0.1) and a step at batch 16 timed;
+             DeformConv's share of deformable_resnet50's forward (batch 8)
+             and train step (batch 16) by torch.profiler under
+             record_function ranges.
 9. check   - device boxes against the host rect-mode SegDetectorRepresenter
              on synthetic scenes, device polygons against the host polygon
              mode on the kernel scenes, K7 on the card against K7 on the
@@ -247,6 +264,19 @@ REC_KEYS = ["mode", "distort", "word_accuracy", "correct", "total",
 E2E_KEYS = ["mode", "n_images", "n_gt_words", "n_detections",
             "det_precision", "det_recall", "det_hmean", "e2e_precision",
             "e2e_recall", "e2e_hmean"]
+
+
+# the families phase: every other detector family the JAX package builds,
+# at full width; the two run card against CPU and trained; the offset
+# branches' std (zero at init); the card-against-CPU tolerance (fp32, TF32
+# off: the calibrated 640² maps differ ~1e-6 between two summation orders)
+FAMILY_SERVE = (("resnet34", "FPN"), ("resnet50", "FPN"),
+                ("deformable_resnet18", "FPN"),
+                ("deformable_resnet50", "FPN"), ("resnet101", "FPN"),
+                ("resnet152", "FPN"), ("resnet18", "FPEM_FFM"))
+FAMILY_CHECK = (("deformable_resnet50", "FPN"), ("resnet18", "FPEM_FFM"))
+FAMILY_STEPS, FAMILY_TIMED_STEPS, FAMILY_REPS = 3, 5, 5
+OFFSET_STD, FAMILY_TOL = 0.01, 1e-4
 
 
 # the counter a row's kernel adds to, where it is not the row's own name
@@ -1868,6 +1898,283 @@ def phase_train(workdir: str) -> dict:
     return launches
 
 
+def calibrate_bn(model: torch.nn.Module, x: torch.Tensor) -> None:
+    """Every BN's running mean set to the batch ``x``'s mean and its
+    running variance to the batch's variance plus 1 (one train-mode
+    forward at momentum 1, no gradient), so that the activations of a
+    random deep network stay of order 1 as a trained one's do; with the
+    init's statistics a seeded resnet50's grow until two summation orders
+    of one fp32 forward lie a mean 0.10 apart on 640² maps."""
+    bns = [m for m in model.modules()
+           if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in bns:
+        m.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model(x)
+    for m in bns:
+        m.momentum = 0.1
+        m.running_var += 1.0
+    model.eval()
+
+
+def family_pth(workdir: str, backbone: str, neck: str,
+               x: torch.Tensor) -> str:
+    """A seeded model of the family at full width, its offset branches
+    (zero at init) drawn from N(0, OFFSET_STD) so that every tap samples
+    off the grid, its BN statistics calibrated on the float batch ``x`` on
+    the card, saved as a ``.pth`` with the port's keys."""
+    model = DBTextModel(backbone_name=backbone, neck_name=neck)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "offset_conv" in name:
+                p.normal_(0.0, OFFSET_STD, generator=g)
+    calibrate_bn(model.cuda(), x)
+    pth = os.path.join(workdir, f"dbnet_{backbone}_{neck}_seed.pth")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, pth)
+    return pth
+
+
+def dcn_ranges(model: torch.nn.Module) -> list:
+    """A ``record_function("DeformConv")`` range around every deformable
+    conv's forward (hooks; returns their handles)."""
+    from torch.profiler import record_function
+
+    from db_text_minimal_tpu_torch.models import DeformConv
+
+    def enter(mod, args):
+        mod._range = record_function("DeformConv")
+        mod._range.__enter__()
+
+    def leave(mod, args, out):
+        mod._range.__exit__(None, None, None)
+
+    handles = []
+    for m in model.modules():
+        if isinstance(m, DeformConv):
+            handles += [m.register_forward_pre_hook(enter),
+                        m.register_forward_hook(leave)]
+    return handles
+
+
+def _device_ms(e) -> float:
+    total = getattr(e, "device_time_total", None)
+    if total is None:
+        total = e.cuda_time_total
+    return total / 1e3
+
+
+def dcn_share(model: torch.nn.Module, fn, reps: int = 1) -> dict:
+    """DeformConv's share of the card's time in ``fn`` (a forward, or a
+    train step of ``model``) by torch.profiler: the kernels under the
+    ``DeformConv`` ranges (``dcn_ranges``) and, in a step, those of the
+    backward nodes that share a sequence number with an op inside a range,
+    against every kernel of the window, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    handles = dcn_ranges(model)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    events = prof.events()
+    # the ranges also show on the device's timeline as annotations, which
+    # span kernels rather than being any
+    total = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == DeviceType.CUDA
+                and e.name != "DeformConv"
+                and not getattr(e, "is_user_annotation", False)) / 1e3 / reps
+    ranges = [e for e in events if e.name == "DeformConv"
+              and e.device_type == DeviceType.CPU]
+    fwd = sum(_device_ms(e) for e in ranges) / reps
+    seqs, stack = set(), [c for e in ranges for c in e.cpu_children]
+    while stack:
+        e = stack.pop()
+        if getattr(e, "sequence_nr", -1) >= 0:
+            seqs.add(e.sequence_nr)
+        stack.extend(e.cpu_children)
+    bwd_events = [e for e in events
+                  if e.name.startswith("autograd::engine::evaluate_function")
+                  and getattr(e, "sequence_nr", -1) in seqs]
+    bwd = sum(_device_ms(e) for e in bwd_events) / reps
+    return {"device_ms": total, "dcn_fwd_ms": fwd, "dcn_bwd_ms": bwd,
+            "share": (fwd + bwd) / total if total else float("nan"),
+            "ranges": len(ranges) // reps,
+            "bwd_nodes": len(bwd_events) // reps}
+
+
+def family_train(workdir: str, backbone: str, neck: str, batch_size: int,
+                 steps: int, mult: float):
+    """``steps`` bf16 steps of Trainer.train_epoch on one synthetic batch
+    (SIZE², ``batch_size``), the offsets under ``dcn_offset_lr_mult``
+    ``mult``, an event before each step. Returns (K2 launches, step ms,
+    total losses, the largest move of an offset weight, trainer, state)."""
+    cfg = train_config(workdir, SIZE, batch_size, "cuda")
+    cfg.model.backbone, cfg.model.neck = backbone, neck
+    cfg.optimizer.dcn_offset_lr_mult = mult
+    batch = text_batch(SEED, batch_size, SIZE)
+    events = []
+
+    def loader():
+        for _ in range(steps):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            yield batch
+
+    trainer = T.Trainer(cfg, loader(), None)
+    state = trainer.init_state()
+    before = {n: p.detach().clone() for n, p in
+              state.model.named_parameters() if "offset_conv" in n}
+    D.reset_launches()
+    state, _, _, _ = trainer.train_epoch(state, 0)
+    events.append(torch.cuda.Event(enable_timing=True))
+    events[-1].record()
+    torch.cuda.synchronize()
+    launches = dict(D.LAUNCHES)
+    params = dict(state.model.named_parameters())
+    moved = max(((params[n].detach() - v).abs().max().item()
+                 for n, v in before.items()), default=0.0)
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    totals = [row["total_loss"] for row in trainer.loss_log]
+    return launches, step_ms, totals, moved, trainer, state
+
+
+def phase_families(workdir: str) -> dict:
+    """Every other detector family the JAX package builds, at full width
+    (see the module): served in box mode through the handler given the
+    loaded model's forward, bf16 against fp32, timed; card against CPU;
+    three bf16 train steps of two; a step at batch 16 timed; DeformConv's
+    share. Returns the K3-K6 and K2 launches of the phase's runs."""
+    from db_text_minimal_tpu_torch.cli.common import load_model
+
+    t_phase = time.perf_counter()
+    request = [{"body": b} for b in synthetic_images()]
+    batch_u8 = DBTextDetectionHandler(device="cuda").preprocess(request)
+    mean = torch.tensor(CAFFE_MEAN, device="cuda")
+    x = torch.from_numpy(batch_u8).cuda().float() - mean
+    served, timing, shares, pths = {}, {}, {}, {}
+    for backbone, neck in FAMILY_SERVE:
+        t_family = time.perf_counter()
+        name = f"{backbone}+{neck}"
+        pths[name] = pth = family_pth(workdir, backbone, neck, x)
+        models = {dt: load_model(pth, backbone=backbone, neck=neck,
+                                 dtype=dt)
+                  for dt in (torch.bfloat16, torch.float32)}
+
+        def forward(u8, model=models[torch.bfloat16]):
+            with torch.inference_mode():
+                return model(torch.from_numpy(u8).cuda().float() - mean)
+
+        handler = DBTextDetectionHandler(forward=forward, device="cuda")
+        cc.reset_launches()
+        result = handler.handle(request, mode="boxes")
+        torch.cuda.synchronize()
+        launches = dict(cc.LAUNCHES)
+        check_launches(launches, RECT_PATH, f"families, {name}, box mode")
+        check_box_result(result)
+        served[name] = launches
+        with torch.inference_mode():
+            p16 = models[torch.bfloat16](x)
+            p32 = models[torch.float32](x)
+            gap = (p16 - p32).abs().mean().item()
+            if not (p16.dtype == torch.float32 and 0 < gap < 0.02
+                    and torch.isfinite(p32).all()):
+                raise AssertionError(f"{name}: bf16 maps vs fp32, mean abs "
+                                     f"{gap}")
+            timing[name] = {
+                dt: event_median(lambda m=models[d]: m(x), FAMILY_REPS)
+                for dt, d in (("bf16", torch.bfloat16),
+                              ("fp32", torch.float32))}
+        if backbone == "deformable_resnet50":
+            with torch.inference_mode():
+                shares["forward"] = dcn_share(
+                    models[torch.bfloat16],
+                    lambda m=models[torch.bfloat16]: m(x))
+        log(f"families ok: {name} served a batch of {N} in box mode (boxes "
+            f"per image {[len(r['boxes']) for r in result]}, launches "
+            f"{launches}); bf16 vs fp32 maps mean abs {gap:.3g} (bound "
+            f"0.02); forward at batch {N}, {SIZE}x{SIZE}, median of "
+            f"{FAMILY_REPS} by CUDA events: bf16 "
+            f"{timing[name]['bf16']:.3f} ms, fp32 "
+            f"{timing[name]['fp32']:.3f} ms; "
+            f"{time.perf_counter() - t_family:.1f} s with the .pth and the "
+            f"loads")
+        del models, handler, p16, p32
+        torch.cuda.empty_cache()
+
+    # card against CPU, fp32 with TF32 off, one image
+    for backbone, neck in FAMILY_CHECK:
+        name = f"{backbone}+{neck}"
+        with torch.inference_mode():
+            on_card = load_model(pths[name], backbone=backbone, neck=neck,
+                                 dtype=torch.float32)(x[:1]).cpu()
+            on_cpu = load_model(pths[name], device="cpu", backbone=backbone,
+                                neck=neck)(x[:1].cpu())
+        err = (on_card - on_cpu).abs().max().item()
+        if not (torch.isfinite(on_card).all() and err < FAMILY_TOL):
+            raise AssertionError(f"{name} on the card vs the CPU: "
+                                 f"max_abs_err {err}")
+        log(f"families check ok: {name} fp32 forward at 1x{SIZE}x{SIZE} on "
+            f"the card vs the CPU, max_abs_err {err:.3g} (tolerance "
+            f"{FAMILY_TOL}), mean {(on_card - on_cpu).abs().mean():.3g}")
+
+    # training: three bf16 steps at batch 4 (K2 each step, finite losses,
+    # the offsets move); then a step at batch 16 timed, and profiled
+    train_launches = {}
+    for backbone, neck in FAMILY_CHECK:
+        name = f"{backbone}+{neck}"
+        mult = 0.1 if backbone.startswith("deformable") else 1.0
+        launches, _, totals, moved, _, _ = family_train(
+            workdir, backbone, neck, TRAIN_BATCH, FAMILY_STEPS, mult)
+        if not (launches["db_step_forward"] == launches["db_step_backward"]
+                == FAMILY_STEPS and all(np.isfinite(totals))
+                and len(totals) == FAMILY_STEPS):
+            raise AssertionError(f"{name} train: K2 launches {launches}, "
+                                 f"losses {totals}")
+        if backbone.startswith("deformable") and not moved > 0:
+            raise AssertionError(f"{name} train: the offsets did not move")
+        train_launches[name] = launches
+        _, step_ms, _, _, trainer, state = family_train(
+            workdir, backbone, neck, QUALITY_BATCH, FAMILY_TIMED_STEPS,
+            mult)
+        med = float(np.median(step_ms[2:]))
+        timing[name]["train_bf16_b16"] = med
+        log(f"families train ok: {name}, {FAMILY_STEPS} bf16 steps at batch "
+            f"{TRAIN_BATCH}, total loss {[round(v, 4) for v in totals]}, K2 "
+            f"launches {launches}, largest offset move {moved:.3g} "
+            f"(dcn_offset_lr_mult {mult}); a step at batch {QUALITY_BATCH}, "
+            f"bf16, median of the last {FAMILY_TIMED_STEPS - 2} of "
+            f"{FAMILY_TIMED_STEPS}: {med:.3f} ms (all steps ms "
+            f"{json.dumps([round(v, 3) for v in step_ms])})")
+        if backbone == "deformable_resnet50":
+            step = T.build_train_step(trainer.cfg)
+            device_batch = T.to_device(text_batch(SEED, QUALITY_BATCH, SIZE),
+                                       torch.device("cuda"))
+            shares["step"] = dcn_share(
+                state.model, lambda: step(state, device_batch, LR))
+        del trainer, state
+        torch.cuda.empty_cache()
+    for what, share in shares.items():
+        share = {k: round(v, 4) if isinstance(v, float) else v
+                 for k, v in share.items()}
+        log(f"families DCN share ({what}, deformable_resnet50, batch "
+            f"{N if what == 'forward' else QUALITY_BATCH}, bf16): "
+            f"{json.dumps(share)}")
+    log(f"families timing: {json.dumps(timing)}")
+    log(f"families phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"served": served, "train": train_launches}
+
+
 def reset_all_launches() -> None:
     for module in (cc, D, I8):
         module.reset_launches()
@@ -2287,6 +2594,7 @@ def main() -> int:
             poly_launches = phase_polygon(preds)
             del preds
             train_launches = phase_train(workdir)
+            phase_families(workdir)
             phase_check(pth)
             phase_check_polygon()
             phase_check_train(workdir)

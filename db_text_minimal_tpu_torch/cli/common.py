@@ -55,11 +55,23 @@ def load_state_dict(model_path: str, fuse_head: bool = False) -> dict:
     return state_dict
 
 
+def neck_of(state_dict: dict) -> str:
+    """The neck whose keys a detector state_dict holds: ``FPEM_FFM`` (its
+    ``segmentation_body.fpem_0`` ...) or ``FPN``."""
+    fpem = any(k.startswith("segmentation_body.fpem_") for k in state_dict)
+    return "FPEM_FFM" if fpem else "FPN"
+
+
 def load_model(model_path: str, device="cuda", backbone: str = "resnet18",
-               head: str = "DBHead", fuse_head: bool = False,
+               neck: str | None = None, head: str = "DBHead",
+               fuse_head: bool = False,
                dtype: torch.dtype | None = None) -> DBTextModel:
     """Build the detector on ``device``, load a ``.pth`` into it and return
-    it in eval mode. ``fuse_head=True`` rewrites a ``DBHead`` checkpoint
+    it in eval mode. ``backbone`` is any of ``models.BACKBONES`` and
+    ``neck`` either of ``models.NECKS``; by default the neck is the one
+    whose keys the checkpoint holds (``neck_of``), so the entry points
+    that take only ``--backbone`` load every family (JAX ``common.py``
+    defaults to ``"FPN"``). ``fuse_head=True`` rewrites a ``DBHead`` checkpoint
     into the weight-equivalent ``FusedDBHead`` inference layout. The default
     device is CUDA; on a machine without a GPU, ``device="cpu"`` must be
     passed.
@@ -74,7 +86,9 @@ def load_model(model_path: str, device="cuda", backbone: str = "resnet18",
     state_dict = load_state_dict(model_path, fuse_head and head == "DBHead")
     if fuse_head and head == "DBHead":
         head = "FusedDBHead"
-    model = DBTextModel(backbone_name=backbone, head_name=head,
+    model = DBTextModel(backbone_name=backbone,
+                        neck_name=neck or neck_of(state_dict),
+                        head_name=head,
                         compute_dtype=dtype or default_dtype(device),
                         **widths_to_model_kwargs(load_widths(model_path)))
     model.load_state_dict(state_dict, strict=True)
@@ -131,8 +145,9 @@ def build_inference_forward(model_path: str, backbone: str = "resnet18",
                             device="cuda"):
     """What the CLIs infer with: (model or folded tree, forward), where
     ``forward`` maps a float32 NHWC numpy batch to NHWC maps on ``device``.
-    ``infer_mode="flax"`` is the plain module (both maps; bfloat16 on CUDA,
-    float32 on the CPU, as ``load_model``); ``"folded"`` and
+    ``infer_mode="flax"`` is the plain module of any family (both maps;
+    bfloat16 on CUDA, float32 on the CPU, as ``load_model``, the neck
+    from the checkpoint); ``"folded"`` and
     ``"int8"`` the BN-folded forward, int8 with dynamic scales (flagship
     resnet18 + FPN only), which with ``prob_only`` return (N, H, W, 1), all
     the detection postprocess reads."""
@@ -143,10 +158,11 @@ def build_inference_forward(model_path: str, backbone: str = "resnet18",
     if infer_mode == "flax":
         model = load_model(model_path, device=device, backbone=backbone)
         return model, make_forward(model)
-    if backbone != "resnet18":
+    state_dict = load_state_dict(model_path, fuse_head=True)
+    if backbone != "resnet18" or neck_of(state_dict) != "FPN":
         raise ValueError("--infer_mode folded/int8 supports the flagship "
                          "resnet18 + FPN")
-    forward = make_folded_forward(load_state_dict(model_path, fuse_head=True),
+    forward = make_folded_forward(state_dict,
                                   quantize=infer_mode == "int8",
                                   prob_only=prob_only, device=device)
     return forward.qvars, forward

@@ -22,7 +22,7 @@ import argparse
 
 from ..models.prune import load_widths
 from ..serve.export import export_model
-from .common import INFER_MODES, load_model, load_state_dict
+from .common import INFER_MODES, load_model, load_state_dict, neck_of
 
 
 def main(argv=None):
@@ -58,10 +58,10 @@ def main(argv=None):
                             backbone=args.backbone,
                             fuse_head=not args.no_fuse_head)
     else:
-        if args.backbone != "resnet18":
+        source = load_state_dict(args.model_path, fuse_head=True)
+        if args.backbone != "resnet18" or neck_of(source) != "FPN":
             parser.error("--infer_mode folded/int8 supports the flagship "
                          "resnet18 + FPN")
-        source = load_state_dict(args.model_path, fuse_head=True)
     path = export_model(
         source, args.out, input_shape=(args.batch, args.height, args.width,
                                        3),

@@ -1,9 +1,12 @@
-"""DBNet detector in PyTorch: resnet18 + FPN + DB head."""
+"""DBNet detector in PyTorch: the ResNet backbones (deformable ones
+included), the FPN and FPEM_FFM necks and the DB heads."""
 
 from .dbnet import DBTextModel
-from .fpn import FPN
-from .head import HEADS, DBHead, FusedDBHead
+from .deform import DeformConv
+from .fpn import FPEM_FFM, FPN, NECKS
+from .head import HEADS, ConvHead, DBHead, FusedDBHead
 from .resnet import BACKBONE_OUT_CHANNELS, BACKBONES, resnet18
 
-__all__ = ["DBTextModel", "FPN", "HEADS", "DBHead", "FusedDBHead",
+__all__ = ["DBTextModel", "DeformConv", "FPN", "FPEM_FFM", "NECKS",
+           "HEADS", "ConvHead", "DBHead", "FusedDBHead",
            "BACKBONE_OUT_CHANNELS", "BACKBONES", "resnet18"]

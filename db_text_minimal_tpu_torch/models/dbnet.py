@@ -19,7 +19,11 @@ pruned checkpoint's ``.widths.json`` (``models/prune``): ``backbone_hidden``
 a per-block tuple of conv1 widths (0 keeps the default),
 ``fpn_inner_quarter`` and ``fpn_out`` the FPN's tied inner and output
 widths, ``head_width`` the head branches' width. None everywhere is the
-unpruned model; the state_dict keys do not change.
+unpruned model; the state_dict keys do not change. They reach the FPN
+only: ``neck_name="FPEM_FFM"`` builds that neck at its own widths (JAX
+dbnet.py:55-61), ``inner_channels`` included. ``head_name="ConvHead"``
+raises ``ValueError``: the JAX model passes it no ``out_channels`` and
+cannot build it either.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .fpn import FPN
+from .deform import DeformConv
+from .fpn import NECKS
 from .head import HEADS
 from .layers import (Conv2d, ConvTranspose2d, init_weights,
                      resize_bilinear_align_corners)
@@ -36,16 +41,24 @@ from .resnet import BACKBONE_OUT_CHANNELS, BACKBONES
 
 class DBTextModel(nn.Module):
     def __init__(self, backbone_name: str = "resnet18",
-                 head_name: str = "DBHead", inner_channels: int = 256,
+                 neck_name: str = "FPN", head_name: str = "DBHead",
+                 inner_channels: int = 256,
                  compute_dtype: torch.dtype = torch.float32,
                  backbone_hidden: tuple | None = None,
                  fpn_inner_quarter: int | None = None,
                  fpn_out: int | None = None, head_width: int | None = None):
         super().__init__()
+        if head_name == "ConvHead":
+            raise ValueError("DBTextModel cannot build a ConvHead: it takes "
+                             "an out_channels that the model does not pass "
+                             "(as in the JAX DBTextModel)")
         self.backbone = BACKBONES[backbone_name](backbone_hidden)
-        self.segmentation_body = FPN(BACKBONE_OUT_CHANNELS[backbone_name],
-                                     inner_channels, fpn_inner_quarter,
-                                     fpn_out)
+        widths = BACKBONE_OUT_CHANNELS[backbone_name]
+        if neck_name == "FPN":
+            self.segmentation_body = NECKS[neck_name](
+                widths, inner_channels, fpn_inner_quarter, fpn_out)
+        else:
+            self.segmentation_body = NECKS[neck_name](widths)
         self.segmentation_head = HEADS[head_name](
             self.segmentation_body.out_channels, head_width)
         self.set_compute_dtype(compute_dtype)
@@ -54,7 +67,7 @@ class DBTextModel(nn.Module):
         """Compute in ``dtype`` (float32 or bfloat16) from now on."""
         self.compute_dtype = dtype
         for m in self.modules():
-            if isinstance(m, (Conv2d, ConvTranspose2d)):
+            if isinstance(m, (Conv2d, ConvTranspose2d, DeformConv)):
                 m.compute_dtype = dtype
         return self
 

@@ -128,4 +128,18 @@ def fuse_variables(state_dict: dict) -> dict:
     return out
 
 
-HEADS = {"DBHead": DBHead, "FusedDBHead": FusedDBHead}
+class ConvHead(nn.Module):
+    """A 1×1 conv with a bias, then a float32 sigmoid (JAX
+    head.py:177-188). ``DBTextModel`` cannot build it: JAX's
+    ``DBTextModel`` passes it no ``out_channels``, so only the head itself
+    is held to JAX's."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = Conv2d(in_channels, out_channels, 1)
+
+    def forward(self, x):
+        return torch.sigmoid(self.conv(x).float())
+
+
+HEADS = {"DBHead": DBHead, "FusedDBHead": FusedDBHead, "ConvHead": ConvHead}

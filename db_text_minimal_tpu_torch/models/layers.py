@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .deform import DeformConv
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """Batch norm with flax's running-statistics rule.
@@ -109,11 +111,26 @@ class ConvBnRelu(nn.Module):
         return F.relu(self.bn(self.conv(x)))
 
 
+def _power_of_two_up(size: int, out: int) -> bool:
+    ratio, rest = divmod(out, size)
+    return rest == 0 and ratio & (ratio - 1) == 0
+
+
 def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
-    """NCHW nearest resize, src index = floor(dst · in / out)."""
-    if tuple(x.shape[-2:]) == tuple(size):
+    """NCHW nearest resize, src index = floor(dst · in / out) in integers,
+    as the JAX ``resize_nearest``. ``F.interpolate`` computes the index
+    from a float32 scale, exact when out/in is a power of two (every
+    resize of a 640² canvas) and one row low at some other ratios (6 to
+    74, 14 to 46), so those take the integer indices."""
+    h, w = x.shape[-2:]
+    oh, ow = size
+    if (h, w) == (oh, ow):
         return x
-    return F.interpolate(x, size=tuple(size), mode="nearest")
+    if _power_of_two_up(h, oh) and _power_of_two_up(w, ow):
+        return F.interpolate(x, size=(oh, ow), mode="nearest")
+    rows = torch.arange(oh, device=x.device) * h // oh
+    cols = torch.arange(ow, device=x.device) * w // ow
+    return x[:, :, rows][:, :, :, cols]
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, size) -> torch.Tensor:
@@ -128,20 +145,37 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
 
 
+def _kaiming_fan_out(weight: torch.Tensor, fan_out: int,
+                     generator: torch.Generator) -> None:
+    with torch.no_grad():
+        weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+
+
 def init_weights(module: nn.Module, generator: torch.Generator,
                  head_bn_bias: float = 0.0) -> None:
     """Seeded init of every conv and BN in ``module``: Kaiming-normal
-    (fan_out, relu) kernels, zero conv biases, BN weight 1 and bias
-    ``head_bn_bias`` (1e-4 in the DB head)."""
+    (fan_out, relu) kernels, the depthwise convs' (fan_out = 9 · C, as
+    flax counts it) and the deformable convs' (``DeformConv``) included,
+    zero conv biases, BN weight 1 and bias ``head_bn_bias`` (1e-4 in the
+    DB head). A deformable conv's offset branch starts at zero, weights
+    and bias (JAX deform.py:66-75)."""
+    offset_convs = set()
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, DeformConv):
+            _kaiming_fan_out(m.weight, m.weight.shape[0] * 9, generator)
+            with torch.no_grad():
+                m.offset_conv.weight.zero_()
+                m.offset_conv.bias.zero_()
+            offset_convs.add(m.offset_conv)
+        elif m in offset_convs:
+            continue
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             fan_out = (m.weight.shape[1] if isinstance(m, nn.ConvTranspose2d)
                        else m.weight.shape[0])
             fan_out *= m.weight.shape[2] * m.weight.shape[3]
-            with torch.no_grad():
-                m.weight.normal_(0.0, math.sqrt(2.0 / fan_out),
-                                 generator=generator)
-                if m.bias is not None:
+            _kaiming_fan_out(m.weight, fan_out, generator)
+            if m.bias is not None:
+                with torch.no_grad():
                     m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             with torch.no_grad():

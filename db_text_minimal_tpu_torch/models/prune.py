@@ -114,10 +114,12 @@ def _is_basic_plain(sd: dict, block: str) -> bool:
 
 def prune_dbnet_variables(state_dict: dict, *, backbone_keep=1.0,
                           fpn_inner_keep=None, fpn_out_keep=None):
-    """Magnitude-prune a trained ``DBTextModel`` state_dict (resnet18 +
-    FPN + DBHead). Each ``*_keep`` is a kept fraction or an absolute
-    channel count; 1.0 or None leaves a group alone. Returns
-    ``(pruned_state_dict, widths)``; the input is not modified."""
+    """Magnitude-prune a trained ``DBTextModel`` state_dict. Each
+    ``*_keep`` is a kept fraction or an absolute channel count; 1.0 or None
+    leaves a group alone. Returns ``(pruned_state_dict, widths)``; the
+    input is not modified. As in JAX, only plain BasicBlocks prune (a
+    Bottleneck or a deformable block is left whole) and only an FPN neck
+    (FPEM_FFM is left whole)."""
     sd = dict(state_dict)
     widths: dict[str, Any] = {}
 

@@ -16,6 +16,12 @@ float32 on the CPU, as ``cli.common.load_model``). The folded modes serve box mo
 prob-only forward (the thresh branch is skipped) and the masks modes
 through the two-map one.
 
+A ``forward`` given to the constructor is served as it is, in place of a
+checkpoint (JAX handler.py:33-45): it maps the uint8 NHWC batch of
+``preprocess`` to NHWC maps, and box mode reads its channel 0. With it,
+any detector family is served (``cli.common.load_model`` builds every one;
+the folded modes are resnet18 + FPN only).
+
 A ``model_path`` ending in ``.pt2`` serves that export (``serve/export``),
 as the JAX handler serves a ``.stablehlo`` artifact: ``infer_mode`` and
 ``dtype`` are then ignored (the archive holds its own forward), uint8
@@ -40,12 +46,15 @@ from ..utils import CAFFE_MEAN, resolve_device, test_resize
 
 
 class DBTextDetectionHandler:
-    def __init__(self, model_path: str, infer_mode: str = "folded",
-                 device="cuda", dtype: torch.dtype | None = None):
+    def __init__(self, model_path: str | None = None, forward=None,
+                 infer_mode: str = "folded", device="cuda",
+                 dtype: torch.dtype | None = None):
         """The model is loaded from ``model_path`` at the first request (or
-        by ``initialize``). The default device is CUDA; on a machine without
-        a GPU, ``device="cpu"`` must be passed. ``dtype`` is the flax
-        mode's compute dtype (``load_model``'s default when None)."""
+        by ``initialize``), unless ``forward`` is given, which is then
+        served (``model_path`` is ignored). The default device is CUDA; on
+        a machine without a GPU, ``device="cpu"`` must be passed.
+        ``dtype`` is the flax mode's compute dtype (``load_model``'s
+        default when None)."""
         if infer_mode not in INFER_MODES:
             raise ValueError(f"infer_mode {infer_mode!r} is not one of "
                              f"{INFER_MODES}")
@@ -54,10 +63,10 @@ class DBTextDetectionHandler:
         self.infer_mode = infer_mode
         self.dtype = dtype
         self.box_representer = DeviceBoxRepresenter()
-        self._forward = None
+        self._forward = forward
         self._forward_prob = None   # prob-only forward for box mode
         self._prob_only = False     # a prob-only export: no thresh map
-        self.initialized = False
+        self.initialized = forward is not None
 
     def initialize(self) -> None:
         if self.model_path.endswith(".pt2"):

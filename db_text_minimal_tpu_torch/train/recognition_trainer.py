@@ -8,13 +8,16 @@ Adam with betas (0.9, 0.999) and eps 1e-8 added outside the square root
 (optax ``scale_by_adam``) at the learning rate given to that step, with no
 clipping and no weight decay: ``torch.optim.Adam`` computes that update.
 
-``ctc_loss`` is ``F.ctc_loss`` per sequence on float32 log-probabilities,
-then the mean over the batch (optax's ``ctc_loss`` and JAX's mean; torch's
-``reduction="mean"`` would divide each loss by its label length first). A
-label that cannot be aligned in T frames (more labels, with repeats, than
-frames) gets loss 0 and no gradient (``zero_infinity``): optax gives it a
-loss of about 1e5 from its log-epsilon floor, and a bounded gradient
-towards its nearest alignment. ROADMAP queue 3 records the gap.
+``ctc_loss`` is ``optax.ctc_loss(...).mean()``, the JAX loss, in value and
+gradient: ``F.ctc_loss`` per sequence on float32 log-probabilities (torch's
+``reduction="mean"`` would divide each loss by its label length first),
+then the mean over the batch. A label that cannot be aligned in T frames
+(more labels, with its repeats, than frames) is infinite for torch; optax
+gives it a loss of about 1e5 from its ``log_epsilon`` floor and a bounded
+gradient towards its nearest alignment. Such sequences take
+``_optax_ctc``, optax's log-space forward recursion
+(``losses/_classification.py`` 690-760 of optax 0.2.6) in plain PyTorch,
+with the gradient by autograd.
 """
 
 from __future__ import annotations
@@ -34,16 +37,70 @@ class RecTrainState:
     step: int = 0
 
 
+LOG_EPSILON = -1e5   # optax's ``log_epsilon``, its log(+0)
+
+
+def _optax_ctc(logp: torch.Tensor, labels: torch.Tensor,
+               label_lengths: torch.Tensor) -> torch.Tensor:
+    """Per-sequence CTC loss of (B, T, C) log-probabilities as optax's
+    ``ctc_loss_with_forward_probs`` computes it with no logit padding:
+    states of blank (``phi``, N + 1 of them) and of label (``emit``, N),
+    log(0) as ``LOG_EPSILON``, blank index 0. ``labels`` is (B, N),
+    right-padded; the padding's values enter through ``repeat`` as in
+    optax."""
+    b, t, _ = logp.shape
+    n = labels.shape[1]
+    labels = labels.long()
+    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).float(), (0, 1))
+    lp_phi = logp[:, :, :1].transpose(0, 1)                       # T, B, 1
+    lp_emit = logp.gather(2, labels[:, None, :].expand(b, t, n)
+                          ).transpose(0, 1)                       # T, B, N
+    phi = torch.full((b, n + 1), LOG_EPSILON, device=logp.device)
+    phi[:, 0] = 0.0
+    emit = torch.full((b, n), LOG_EPSILON, device=logp.device)
+
+    def add_phi(phi, added):
+        return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], added)],
+                         dim=-1)
+
+    for step in range(t):
+        prev_phi = add_phi(phi, emit + LOG_EPSILON * repeat)
+        next_emit = torch.logaddexp(prev_phi[:, :-1] + lp_emit[step],
+                                    emit + lp_emit[step])
+        next_phi = add_phi(prev_phi + lp_phi[step], emit + lp_phi[step]
+                           + LOG_EPSILON * (1.0 - repeat))
+        phi, emit = next_phi, next_emit
+    last = add_phi(phi, emit)
+    return -last.gather(1, label_lengths.long()[:, None])[:, 0]
+
+
+def _unalignable(labels: torch.Tensor, label_lengths: torch.Tensor,
+                 frames: int) -> torch.Tensor:
+    """True where a label needs more than ``frames`` frames: one a label,
+    and one more between each pair of equal neighbours."""
+    lengths = label_lengths.long()
+    pairs = torch.arange(labels.shape[1] - 1, device=labels.device)
+    repeats = ((labels[:, 1:] == labels[:, :-1])
+               & (pairs[None] < lengths[:, None] - 1)).sum(1)
+    return lengths + repeats > frames
+
+
 def ctc_loss(logits: torch.Tensor, labels: torch.Tensor,
              label_lengths: torch.Tensor) -> torch.Tensor:
     """Mean CTC loss of (N, T, C) logits; blank index 0 (as
-    ``CTCLabelConverter``); an unalignable label counts 0."""
+    ``CTCLabelConverter``); ``optax.ctc_loss(...).mean()``, an
+    unalignable label included."""
     n, t, _ = logits.shape
-    logp = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)
-    per_seq = F.ctc_loss(logp, labels.long(),
+    logp = F.log_softmax(logits.float(), dim=-1)
+    per_seq = F.ctc_loss(logp.transpose(0, 1), labels.long(),
                          torch.full((n,), t, dtype=torch.long),
                          label_lengths.long(), blank=0, reduction="none",
                          zero_infinity=True)
+    bad = _unalignable(labels, label_lengths, t)
+    if bad.any():
+        idx = bad.nonzero()[:, 0]
+        per_seq = per_seq.index_put(
+            (idx,), _optax_ctc(logp[idx], labels[idx], label_lengths[idx]))
     return per_seq.mean()
 
 

@@ -33,6 +33,7 @@ import os
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import losses as L
@@ -116,13 +117,66 @@ def compute_dtype(cfg, device: torch.device) -> torch.dtype:
     return torch.float32
 
 
-def make_optimizer(cfg, model: torch.nn.Module) -> torch.optim.Adam:
-    """Adam with betas (0.9, 0.999) and eps 1e-8; weight decay as L2 in the
-    gradient (torch Adam's form, not AdamW) and amsgrad from the config.
-    The learning rate is set before every step (``set_lr``) from the
-    schedule. The parameters of a deformable conv's offset branch
-    (``offset_conv``) form a group of their own whose rate is scaled by
-    ``optimizer.dcn_offset_lr_mult``; resnet18 has none."""
+class Amsgrad(torch.optim.Optimizer):
+    """optax's ``scale_by_amsgrad`` (optax 0.2.6, ``_src/transform.py``
+    320-373) behind ``add_decayed_weights`` (``transforms/_adding.py``
+    60-70: g + wd · p), at the group's learning rate:
+
+    - m ← β1·m + (1−β1)·g and v ← β2·v + (1−β2)·g²
+      (``tree_utils/_tree_math.py`` 353-399);
+    - m̂ = m/(1−β1ᵗ), v̂ = v/(1−β2ᵗ) (the same file, 401-411), each
+      1−βᵗ in float32 as optax takes it (0.999ᵗ in float32 is 1.3e-5
+      relative off its float64 value after one step);
+    - v_max ← max(v_max, v̂), the bias-corrected moment (torch's
+      ``Adam(amsgrad=True)`` keeps the raw one);
+    - p ← p − lr · m̂/(√v_max + eps).
+
+    The state of a parameter is ``step`` (an int), ``mu``, ``nu`` and
+    ``nu_max``, saved and restored by ``state_dict``."""
+
+    def __init__(self, params, lr: float = 0.0, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        super().__init__(params, {"lr": lr, "betas": betas, "eps": eps,
+                                  "weight_decay": weight_decay})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if group["weight_decay"]:
+                    g = g + group["weight_decay"] * p
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    for key in ("mu", "nu", "nu_max"):
+                        state[key] = torch.zeros_like(p)
+                state["step"] += 1
+                t = np.float32(state["step"])
+                mu, nu, nu_max = state["mu"], state["nu"], state["nu_max"]
+                mu.mul_(b1).add_(g, alpha=1 - b1)
+                nu.mul_(b2).add_(g * g, alpha=1 - b2)
+                bc1 = float(np.float32(1) - np.float32(b1) ** t)
+                bc2 = float(np.float32(1) - np.float32(b2) ** t)
+                torch.maximum(nu_max, nu / bc2, out=nu_max)
+                p.sub_(group["lr"] * (mu / bc1)
+                       / (nu_max.sqrt() + group["eps"]))
+        return None
+
+
+def make_optimizer(cfg, model: torch.nn.Module) -> torch.optim.Optimizer:
+    """Adam with betas (0.9, 0.999) and eps 1e-8, weight decay as L2 in the
+    gradient (torch Adam's form and optax's ``add_decayed_weights``, not
+    AdamW): ``torch.optim.Adam``, or with ``optimizer.amsgrad`` the
+    ``Amsgrad`` above, optax's rule as the JAX trainer chains it
+    (trainer.py:108-118). The learning rate is set before every step
+    (``set_lr``) from the schedule. The parameters of a deformable conv's
+    offset branch (``offset_conv``) form a group of their own whose rate
+    is scaled by ``optimizer.dcn_offset_lr_mult`` (JAX's
+    ``optax.masked(optax.scale(mult))``)."""
     mult = float(cfg.optimizer.dcn_offset_lr_mult or 1.0)
     offset, rest = [], []
     for name, param in model.named_parameters():
@@ -130,10 +184,12 @@ def make_optimizer(cfg, model: torch.nn.Module) -> torch.optim.Adam:
     groups = [{"params": rest, "lr_mult": 1.0}]
     if offset:
         groups.append({"params": offset, "lr_mult": mult})
+    wd = float(cfg.optimizer.weight_decay or 0.0)
+    if cfg.optimizer.amsgrad:
+        return Amsgrad(groups, betas=(0.9, 0.999), eps=1e-8,
+                       weight_decay=wd)
     return torch.optim.Adam(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=float(cfg.optimizer.weight_decay
-                                               or 0.0),
-                            amsgrad=bool(cfg.optimizer.amsgrad))
+                            weight_decay=wd)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
@@ -230,9 +286,6 @@ class Trainer:
             if cfg.logging and cfg.logging.logger_file else None)
         self.seed = int(cfg.trainer.seed if cfg.trainer else 42)
         setup_determinism(self.seed)
-        if (cfg.model.neck or "FPN") != "FPN":
-            raise NotImplementedError(f"neck {cfg.model.neck!r} is not "
-                                      f"ported (ROADMAP queue 1 item 8)")
         self.train_loader = train_loader
         self.test_loader = test_loader
         self._train_step = build_train_step(cfg)
@@ -264,9 +317,12 @@ class Trainer:
         finetune checkpoint where the config names files that exist. A
         pruned model's widths (``cfg.model.widths``, the checkpoint's
         sidecar, set by ``cli.train`` and ``quality_bench``) give the
-        narrow architecture."""
+        narrow architecture. A deformable backbone loads a torchvision
+        ``.pth`` without its offset branches, which stay at zero, as the
+        JAX ``load_pretrained_backbone`` merge leaves them."""
         cfg = self.cfg
         model = DBTextModel(backbone_name=cfg.model.backbone or "resnet18",
+                            neck_name=cfg.model.neck or "FPN",
                             head_name=cfg.model.head or "DBHead",
                             compute_dtype=self.compute_dtype,
                             **widths_to_model_kwargs(cfg.model.widths))
@@ -278,8 +334,9 @@ class Trainer:
             missing, unexpected = model.backbone.load_state_dict(
                 {k: v for k, v in sd.items() if not k.startswith("fc.")},
                 strict=False)
-            bad = unexpected + [k for k in missing
-                                if not k.endswith("num_batches_tracked")]
+            bad = unexpected + [
+                k for k in missing if not k.endswith("num_batches_tracked")
+                and "offset_conv" not in k.split(".")]
             if bad:
                 raise ValueError(f"{pb}: keys do not match the backbone: "
                                  f"{bad}")

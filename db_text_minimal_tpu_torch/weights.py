@@ -13,7 +13,12 @@ into both packages. Layouts:
 - BatchNorm scale/bias -> weight/bias, mean/var -> running_mean/running_var,
   plus ``num_batches_tracked`` = 0.
 
-Both head layouts convert: ``DBHead`` (``binarize``/``thresh`` branches, keys
+Every backbone, neck and head of ``models`` converts: a Bottleneck's
+``conv3``/``bn3``; a deformable conv's kernel (3, 3, C, F) into
+``conv2.weight`` (F, C, 3, 3) and its ``offset_conv`` kernel and bias; the
+FPEM_FFM neck's ``fpem_i.{up,down}_addK.{depthwise_conv,pointwise_conv,
+bn}``, a depthwise HWIO (3, 3, 1, C) kernel into (C, 1, 3, 3), and its
+``reduce_conv_cK``; ``ConvHead``'s ``conv``. Both DB head layouts convert: ``DBHead`` (``binarize``/``thresh`` branches, keys
 ``segmentation_head.binarize.0.weight`` ...) and ``FusedDBHead`` (keys
 ``segmentation_head.conv1.weight``, ``segmentation_head.binarize_deconv1``
 ...).

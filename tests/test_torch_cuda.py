@@ -720,3 +720,72 @@ def test_recognizer_train_step_on_the_card_matches_the_cpu(pred, device):
         assert (grads_c[name] - ref).abs().max().item() <= 1e-3 * scale, name
     for name, ref in stats_h.items():
         torch.testing.assert_close(stats_c[name], ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_deform_conv_on_the_card_matches_the_cpu(stride, device):
+    """``DeformConv`` (the gather formulation, no hand kernel) forward and
+    backward on the card against the CPU, fp32 with TF32 off, offsets of
+    several pixels (many taps outside the map): the output and the
+    gradients with respect to the input, the offset branch and the kernel
+    each within 1e-5 of its largest (the offset convs' f32 sums differ
+    between the two and move the samples: the output 1.7e-5 apart at most,
+    measured)."""
+    from db_text_minimal_tpu_torch.cli.common import _fp32_convolutions
+    from db_text_minimal_tpu_torch.models.deform import DeformConv
+
+    _fp32_convolutions()
+    g = torch.Generator().manual_seed(stride)
+    conv = DeformConv(64, 32, stride)
+    with torch.no_grad():
+        conv.weight.normal_(0, 0.05, generator=g)
+        conv.offset_conv.weight.normal_(0, 0.1, generator=g)
+        conv.offset_conv.bias.normal_(0, 1.5, generator=g)
+    x = torch.randn((2, 64, 37, 41), generator=g)
+    upstream = torch.randn((2, 32, (37 + stride - 1) // stride,
+                            (41 + stride - 1) // stride), generator=g)
+    results = []
+    for dev in (device, torch.device("cpu")):
+        conv.to(dev).zero_grad()
+        xd = x.to(dev).requires_grad_()
+        out = conv(xd)
+        (out * upstream.to(dev)).sum().backward()
+        results.append([t.detach().cpu() for t in (
+            out, xd.grad, conv.offset_conv.weight.grad,
+            conv.offset_conv.bias.grad, conv.weight.grad)])
+    for got, ref in zip(results[0], results[1]):
+        scale = ref.abs().max().item()
+        assert scale > 0 and (got - ref).abs().max().item() <= 1e-5 * scale
+
+
+def test_deformable_resnet18_on_the_card_matches_the_cpu(device):
+    """A deformable_resnet18 + FPN forward from seeded weights (offset
+    branches random), fp32 with TF32 off: the card's maps within 1e-4 of
+    the CPU's. The BN statistics are first set to the batch's (variance
+    plus 1, a train-mode pass at momentum 1): with the init's, a random
+    deep network's activations, and so its offsets, grow until the maps
+    of two summation orders lie 0.15 apart."""
+    from db_text_minimal_tpu_torch.cli.common import _fp32_convolutions
+    from db_text_minimal_tpu_torch.models import DBTextModel
+
+    _fp32_convolutions()
+    model = DBTextModel(backbone_name="deformable_resnet18")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "offset_conv" in name:
+                p.normal_(0, 0.01, generator=g)
+    x = torch.rand((2, 128, 128, 3), generator=g) * 255 - 128
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in bns:
+        m.momentum = 1.0
+    with torch.no_grad():
+        model(x)
+    for m in bns:
+        m.running_var += 1.0
+    model.eval()
+    with torch.no_grad():
+        ref = model(x)
+        got = model.to(device)(x.to(device)).cpu()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)

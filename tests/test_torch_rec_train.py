@@ -58,11 +58,16 @@ def test_losses_match_jax(pred):
 
 
 def test_ctc_unalignable_label_stays_finite():
-    """ROADMAP queue 3: a label that cannot be aligned in T frames (here 7
-    labels, or 4 repeats needing 7 frames, in T = 6) costs ~1e5 in optax
-    (its log-epsilon floor) with a bounded gradient; the port counts it 0
-    with no gradient (``zero_infinity``), so the loss and a step stay
-    finite, and the alignable sequences' losses and gradients agree."""
+    """A label that cannot be aligned in T frames (here 7 labels, or 4
+    repeats needing 7 frames, in T = 6) costs ~1e5 in optax (its
+    log-epsilon floor) with a bounded gradient, and the port's loss is
+    optax's: the batch mean at rtol 1e-6, the alignable sequence's
+    gradient at the tolerance of ``test_losses_match_jax``, and the
+    unalignable ones' at atol 2^-6. Near the floor every log-space value
+    is rounded to the float32 spacing at 1e5, 2^-7, and a gradient is an
+    exponential of their differences, so each implementation lies ~1 %
+    (0.2-0.9 % measured) from the float64 recursion; the two lie 2.9e-3
+    apart at most, on gradients up to 0.28."""
     rs = np.random.RandomState(0)
     logits = rs.randn(3, 6, 5).astype(np.float32)
     labels = np.array([[1, 2, 3, 0, 0, 0, 0], [1, 1, 1, 1, 0, 0, 0],
@@ -81,10 +86,12 @@ def test_ctc_unalignable_label_stays_finite():
     loss = ptrain.ctc_loss(x, torch.from_numpy(labels),
                            torch.from_numpy(lengths))
     loss.backward()
-    np.testing.assert_allclose(loss.item(), per_seq[0] / 3, rtol=1e-5)
+    np.testing.assert_allclose(loss.item(), per_seq.mean(), rtol=1e-6)
     np.testing.assert_allclose(x.grad[0].numpy(), ref_grad[0], rtol=1e-4,
                                atol=1e-6)
-    assert (x.grad[1:] == 0).all()
+    np.testing.assert_allclose(x.grad[1:].numpy(), ref_grad[1:], rtol=0,
+                               atol=2.0 ** -6)
+    assert np.abs(x.grad[1:].numpy()).max() > 0.1
 
     # a whole step on an unalignable batch leaves finite weights
     _, _, model = rec_pair(37, feature_extraction="VGG",
