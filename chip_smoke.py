@@ -144,6 +144,20 @@ Phases, one output line each (or more), stopping at the first failure:
              JAX's keys, total > 0), and cli.ocr.main on a test image with
              --infer_mode int8 (P1 must launch), its detect and crop stages
              timed, and its recognize stage on the image's GT crops.
+12. tools  - the JAX package's Flax checkpoint reader on the card: the
+             committed fixture (tests/make_flax_fixture.py, a narrow
+             detector and its JAX maps) in fp32, max abs 1e-4 from the JAX
+             maps; cli/test at full width on the serve phase's .pth in the
+             heatmap, polygon and rect modes, flax and int8 (P1 17 times a
+             run), card against CPU; cli/webcam with recognition on a
+             6-frame mp4v video of the 640x480 images, frames/s;
+             pretrain_backbone_dense at full resnet18 width (8 steps of 64
+             crops), its .pth loaded by a Trainer, ms a step; cli.train
+             with --coordinator_address (NCCL, a group of one, the model in
+             DistributedDataParallel) and --profile_dir on the quality set
+             (K2 in each of 16 steps, its kernels named in the trace), then
+             a bf16 step at batch 4 plain and in DDP; quality_bench
+             --eval_only --dump_eval_dir on quality.ckpt.
 
 Every kernel time is taken with the 50 MB L2 flushed before each call
 (``flush_l2``), as a caller that did other work in between finds it; the
@@ -277,6 +291,22 @@ FAMILY_SERVE = (("resnet34", "FPN"), ("resnet50", "FPN"),
 FAMILY_CHECK = (("deformable_resnet50", "FPN"), ("resnet18", "FPEM_FFM"))
 FAMILY_STEPS, FAMILY_TIMED_STEPS, FAMILY_REPS = 3, 5, 5
 OFFSET_STD, FAMILY_TOL = 0.01, 1e-4
+
+
+# the tools phase: the committed Flax fixture (tests/make_flax_fixture.py:
+# a narrow detector written by the JAX package, its JAX maps of a seeded
+# 64x64 input) held on the card in fp32 at the families' tolerance;
+# cli/test's runs card against CPU (the flax mode bf16 on the card, fp32 on
+# the CPU): binarized maps agreeing on TOOLS_AGREE of the pixels, resized
+# prob maps within a mean TOOLS_GAP, box counts within TOOLS_BOXES of each
+# other (or 2); webcam frames, pretrain steps, a cli.train epoch
+FLAX_FIXTURE = "tests/fixtures/flax_det.ckpt"
+FLAX_MAPS = "tests/fixtures/flax_det_maps.npy"
+TOOLS_AGREE, TOOLS_GAP, TOOLS_BOXES = 0.99, 0.02, 0.2
+TOOLS_FRAMES, PRETRAIN_STEPS, PRETRAIN_BATCH = 6, 8, 64
+CLI_TEST_MODES = (("heatmap", ["--heatmap", "true"]),
+                  ("polygon", ["--is_output_polygon", "true"]),
+                  ("rect", ["--is_output_polygon", "false"]))
 
 
 # the counter a row's kernel adds to, where it is not the row's own name
@@ -2509,6 +2539,363 @@ def phase_ocr(workdir: str) -> dict:
     return p1
 
 
+def fixture_input() -> np.ndarray:
+    """The seeded input of the Flax fixture's maps
+    (``tests/make_flax_fixture.fixture_input``)."""
+    return np.random.RandomState(0).uniform(
+        -120, 120, (1, 64, 64, 3)).astype(np.float32)
+
+
+class Recorder:
+    """Wraps ``fn`` and keeps each call's (args, result)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        self.calls.append((args, out))
+        return out
+
+
+def tools_cli_test(workdir: str, pth: str) -> tuple[dict, dict]:
+    """``cli/test`` on a synthetic 640x480 image at full width (the serve
+    phase's .pth), in the three output modes, flax and int8, on the card
+    and on the CPU; what each overlay is drawn from (``utils/visualize``'s
+    ``overlay`` and ``filter_zero_boxes``, recorded) held card against CPU.
+    Returns the rows and P1's launches in the card's int8 runs, by
+    form."""
+    import cv2
+
+    from db_text_minimal_tpu_torch.cli import test as test_cli
+    from db_text_minimal_tpu_torch.utils import visualize
+
+    image = os.path.join(workdir, "tools_scene.png")
+    with open(image, "wb") as f:
+        f.write(synthetic_images()[0])
+    real = visualize.overlay, visualize.filter_zero_boxes
+    rows, p1 = {}, dict.fromkeys(I8.LAUNCHES, 0)
+    try:
+        for infer in ("flax", "int8"):
+            for mode, flags in CLI_TEST_MODES:
+                seen = {}
+                for device in ("cuda", "cpu"):
+                    drawn = visualize.overlay = Recorder(real[0])
+                    boxes = visualize.filter_zero_boxes = Recorder(real[1])
+                    args = test_cli.load_args(
+                        ["--image_path", image, "--model_path", pth,
+                         "--save_dir", os.path.join(workdir, "tools_out",
+                                                    device),
+                         "--infer_mode", infer, "--device", device,
+                         "--thresh", "0.3", "--box_thresh", "0.5"] + flags)
+                    reset_all_launches()
+                    t0 = time.perf_counter()
+                    path = test_cli.main(args)
+                    wall = (time.perf_counter() - t0) * 1e3
+                    if cv2.imread(path).shape != (480, 640, 3):
+                        raise AssertionError(f"cli/test: {path}")
+                    if device == "cuda":
+                        launches = I8.LAUNCHES["int8_epilogue"]
+                        if launches != (INT8_CONVS if infer == "int8"
+                                        else 0):
+                            raise AssertionError(
+                                f"cli/test {infer} {mode}: P1 launched "
+                                f"{launches} times")
+                        for key, value in I8.LAUNCHES.items():
+                            p1[key] += value
+                    layer = np.asarray(drawn.calls[0][0][1][0][0])
+                    found = boxes.calls[0][1][0] if boxes.calls else []
+                    seen[device] = (wall, layer, found)
+                rows[f"{infer} {mode}"] = tools_compare(
+                    f"cli/test {infer} {mode}", seen["cuda"], seen["cpu"],
+                    mode)
+    finally:
+        visualize.overlay, visualize.filter_zero_boxes = real
+    return rows, p1
+
+
+def tools_compare(what: str, card, cpu, mode: str) -> dict:
+    """A card run of cli/test against the CPU run: the binarized maps (the
+    heatmap) agree on TOOLS_AGREE of the pixels; the resized prob maps lie
+    within a mean TOOLS_GAP and the box counts within TOOLS_BOXES (or 2)
+    of each other."""
+    (wall, layer, boxes), (cpu_wall, cpu_layer, cpu_boxes) = card, cpu
+    row = {"card_ms": wall, "cpu_ms": cpu_wall}
+    if mode == "heatmap":
+        row["agree"] = float((layer == cpu_layer).mean())
+        if not row["agree"] >= TOOLS_AGREE:
+            raise AssertionError(f"{what}: binarized maps agree on "
+                                 f"{row['agree']}")
+        return row
+    row.update(gap=float(np.abs(layer - cpu_layer).mean()),
+               boxes=len(boxes), cpu_boxes=len(cpu_boxes))
+    if not (row["gap"] <= TOOLS_GAP and abs(len(boxes) - len(cpu_boxes))
+            <= max(2, TOOLS_BOXES * len(cpu_boxes)) and len(cpu_boxes)):
+        raise AssertionError(f"{what}: card against CPU {row}")
+    return row
+
+
+def tools_webcam(workdir: str, pth: str) -> dict:
+    """``cli/webcam`` with recognition (the seeded full-width ResNet/Attn
+    recognizer, its default) on a TOOLS_FRAMES-frame mp4v video of the
+    synthetic 640x480 images, every frame processed; then each frame's
+    ``process_frame`` timed."""
+    import cv2
+
+    from db_text_minimal_tpu_torch.cli import ocr, webcam
+    from db_text_minimal_tpu_torch.postprocess import SegDetectorRepresenter
+
+    video = os.path.join(workdir, "tools_in.mp4")
+    out = os.path.join(workdir, "tools_out.mp4")
+    frames = [cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_COLOR)
+              for b in synthetic_images()[:TOOLS_FRAMES]]
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 20.0,
+                             (640, 480))
+    for frame in frames:
+        writer.write(frame)
+    writer.release()
+    args = webcam.load_args(["--det_model_path", pth, "--video_path", video,
+                             "--out_path", out, "--per_frame", "1",
+                             "--recognize", "--thresh", "0.3",
+                             "--box_thresh", "0.5"])
+    t0 = time.perf_counter()
+    count = webcam.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cap = cv2.VideoCapture(out)
+    written = 0
+    while cap.read()[0]:
+        written += 1
+    cap.release()
+    if not count == written == TOOLS_FRAMES:
+        raise AssertionError(f"webcam: {count} frames read, {written} "
+                             f"written of {TOOLS_FRAMES}")
+    # the per-frame cost apart from loading the models
+    _, forward = build_inference_forward(pth)
+    converter = ocr.build_converter(args)
+    rec = (converter, ocr.load_rec_model(args, len(converter.character)))
+    seg = SegDetectorRepresenter(thresh=args.thresh,
+                                 box_thresh=args.box_thresh,
+                                 unclip_ratio=args.unclip_ratio)
+    words = Recorder(webcam.recognize_crops)
+    webcam.recognize_crops = words
+    try:
+        times = []
+        for frame in frames + frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            webcam.process_frame(args, frame.copy(), forward, seg, rec)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        webcam.recognize_crops = words.fn
+    ms = float(np.median(times[len(frames):]))
+    return {"frames": count, "main_wall_s": wall,
+            "main_frames_per_s": count / wall, "frame_ms": ms,
+            "frames_per_s": 1e3 / ms,
+            "words_a_frame": [len(out) for _, out in
+                              words.calls[len(frames):]]}
+
+
+def tools_pretrain(workdir: str) -> dict:
+    """``pretrain_backbone_dense`` at full resnet18 width for
+    PRETRAIN_STEPS steps of PRETRAIN_BATCH 128x128 crops of the quality
+    set; its .pth loaded into a ``Trainer``; then ``build_step`` timed on
+    the same sampler's batches."""
+    from db_text_minimal_tpu_torch.train import backbone_pretrain as BP
+
+    train_dir = os.path.join(workdir, "hard", "train_images")
+    gt_dir = os.path.join(workdir, "hard", "train_gts")
+    out = os.path.join(workdir, "tools_backbone.pth")
+    t0 = time.perf_counter()
+    result = BP.pretrain_backbone_dense(train_dir, gt_dir, out,
+                                        steps=PRETRAIN_STEPS,
+                                        batch_size=PRETRAIN_BATCH, log=log)
+    wall = time.perf_counter() - t0
+    cfg = default_config()
+    cfg.model.pretrained_backbone_path = out
+    cfg.logging.logger_file = None
+    state = T.Trainer(cfg).init_state()
+    saved = torch.load(out, weights_only=True)
+    for key, value in state.model.backbone.state_dict().items():
+        if not (key.endswith("num_batches_tracked")
+                or torch.equal(value.cpu(), saved[key])):
+            raise AssertionError(f"pretrain: the Trainer's {key} is not "
+                                 f"the .pth's")
+    images, bboxes = BP.load_scene_bboxes(train_dir, gt_dir)
+    rng = np.random.RandomState(SEED)
+    model = BP.BackboneDense()
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    step, _ = BP.build_step(model.cuda(), BP.dense_loss, torch.device("cuda"))
+    times = []
+    for _ in range(6):
+        batch = BP.sample_patches_dense(images, bboxes, rng, PRETRAIN_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = step(2e-3, *batch)
+        if not np.isfinite(float(loss)):
+            raise AssertionError(f"pretrain: loss {loss}")
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {**result, "wall_s": wall,
+            "step_ms": float(np.median(times[2:]))}
+
+
+def tools_train(workdir: str) -> tuple[dict, dict]:
+    """``cli.train`` on the quality set (640x640, global batch 4, bf16)
+    with ``--coordinator_address --num_processes 1 --process_id 0``: NCCL,
+    the model in DistributedDataParallel; ``--profile_dir`` records the
+    first
+    epoch, then ``fit`` runs one more (in a group of one the model is in
+    DDP, without the collectives of a larger group). K2 must launch in
+    every step and the trace must name its Triton kernels. Then a bf16 step at batch 4 timed
+    plain, in DDP (a group of one) and plain again. Returns the row and
+    the K2 launches."""
+    import socket
+
+    from db_text_minimal_tpu_torch.cli import train as train_cli
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    root = os.path.join(workdir, "tools_train")
+    hard = os.path.join(workdir, "hard")
+    config = os.path.join(workdir, "tools_train.yaml")
+    section = {"train_dir": f"{hard}/train_images",
+               "train_gt_dir": f"{hard}/train_gts",
+               "test_dir": f"{hard}/test_images",
+               "test_gt_dir": f"{hard}/test_gts", "ignore_tags": ["###"]}
+    with open(config, "w") as f:   # JSON is YAML
+        json.dump({"meta": {"root_dir": root},
+                   "dataset": {"name": "totaltext"},
+                   "data": {"totaltext": section},
+                   "hps": {"img_size": SIZE, "batch_size": TRAIN_BATCH,
+                           "test_batch_size": 1}}, f)
+    profile = os.path.join(root, "profile")
+    reset_all_launches()
+    t0 = time.perf_counter()
+    _, history = train_cli.main(train_cli.load_args(
+        ["--config", config, "--epochs", "1", "--coordinator_address",
+         f"127.0.0.1:{free_port()}", "--num_processes", "1",
+         "--process_id", "0", "--profile_dir", profile]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2 = {k: D.LAUNCHES[k] for k in ("db_step_forward", "db_step_backward")}
+    steps = 2 * (QUALITY_TRAIN // TRAIN_BATCH)
+    if not (k2["db_step_forward"] == k2["db_step_backward"] == steps
+            and np.isfinite(history[0]["train_loss"])):
+        raise AssertionError(f"cli.train DDP: K2 {k2} in {steps} steps, "
+                             f"history {history}")
+    if torch.distributed.is_initialized():
+        raise AssertionError("cli.train left its process group")
+    (trace,) = os.listdir(profile)
+    with open(os.path.join(profile, trace)) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    named = {k: sum(k in n for n in names) for k in
+             ("_db_step_fwd_kernel", "_db_step_bwd_kernel", "nccl")}
+    if not (named["_db_step_fwd_kernel"] and named["_db_step_bwd_kernel"]):
+        raise AssertionError(f"cli.train DDP: the trace names {named}")
+    if not os.path.exists(os.path.join(root, "models", "last_cp.ckpt")):
+        raise AssertionError("cli.train DDP: no last checkpoint")
+
+    cfg = train_config(workdir, SIZE, TRAIN_BATCH, "cuda")
+    batch = T.to_device(text_batch(SEED + 11, TRAIN_BATCH, SIZE),
+                        torch.device("cuda"))
+
+    def step_ms() -> float:
+        state = T.Trainer(cfg).init_state()
+        step = T.build_train_step(cfg)
+        times = []
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch, LR)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times[3:]))
+
+    plain = step_ms()
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0)
+    try:
+        ddp = step_ms()
+    finally:
+        torch.distributed.destroy_process_group()
+    return ({"wall_s": wall, "epochs": 2, "steps": steps, "history": history,
+             "trace_names": named, "step_ms_plain": [plain, step_ms()],
+             "step_ms_ddp": ddp}, k2)
+
+
+def tools_dump(workdir: str) -> dict:
+    """``quality_bench --eval_only --dump_eval_dir`` on the quality
+    phase's checkpoint: each test batch's npz and boxes pickle, the
+    device row through K3-K6."""
+    import pickle
+
+    dump = os.path.join(workdir, "tools_dump")
+    reset_all_launches()
+    quality_bench.main(quality_bench.load_args(
+        ["--data_dir", os.path.join(workdir, "hard"), "--batch_size",
+         str(QUALITY_BATCH), "--test_batch_size", str(QUALITY_BATCH),
+         "--thresh", "0.25", "--box_thresh", "0.5", "--eval_only",
+         "--checkpoint", os.path.join(workdir, "quality.ckpt"),
+         "--dump_eval_dir", dump, "--out",
+         os.path.join(workdir, "tools_dump.json")]))
+    torch.cuda.synchronize()
+    check_launches(all_launches(), RECT_PATH, "quality bench --dump_eval_dir")
+    batches = QUALITY_TEST // QUALITY_BATCH
+    want = sorted(f"batch_{i:03d}{ext}" for i in range(batches)
+                  for ext in (".npz", ".boxes.pkl"))
+    if sorted(os.listdir(dump)) != want:
+        raise AssertionError(f"dump: {sorted(os.listdir(dump))}")
+    preds = np.load(os.path.join(dump, "batch_000.npz"))["preds"]
+    with open(os.path.join(dump, "batch_000.boxes.pkl"), "rb") as f:
+        rows = pickle.load(f)
+    if not (preds.shape == (QUALITY_BATCH, SIZE, SIZE, 2)
+            and preds.dtype == np.float32 and np.isfinite(preds).all()
+            and list(rows) == ["host", "device"]
+            and all(len(rows[r][0]) == QUALITY_BATCH for r in rows)):
+        raise AssertionError(f"dump: preds {preds.shape} {preds.dtype}, "
+                             f"rows {list(rows)}")
+    # rect mode's host rows keep a zero entry for each rejected contour
+    return {"files": want, "boxes": {
+        r: int(sum((np.abs(np.asarray(b, float)).sum() > 0) for img in
+                   rows[r][0] for b in img)) for r in rows}}
+
+
+def phase_tools(workdir: str, pth: str) -> dict:
+    """The tools phase (see the module): the Flax fixture, cli/test,
+    cli/webcam, backbone pretraining, the distributed cli.train and
+    --dump_eval_dir. Returns P1's launches in cli/test's int8 runs and K2's
+    in the distributed cli.train."""
+    t_phase = time.perf_counter()
+    model = load_model(FLAX_FIXTURE, dtype=torch.float32)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(fixture_input()).cuda()).cpu().numpy()
+    flax_gap = float(np.abs(got - np.load(FLAX_MAPS)).max())
+    if not flax_gap <= FAMILY_TOL:
+        raise AssertionError(f"Flax fixture: max abs {flax_gap} from the "
+                             f"JAX maps")
+    cli_rows, p1 = tools_cli_test(workdir, pth)
+    webcam_row = tools_webcam(workdir, pth)
+    pretrain_row = tools_pretrain(workdir)
+    train_row, k2 = tools_train(workdir)
+    dump_row = tools_dump(workdir)
+    log(f"tools ok: the Flax fixture ({FLAX_FIXTURE}, the JAX package's "
+        f"msgpack, narrow widths from its sidecar) in fp32 on the card, "
+        f"max abs {flax_gap:.3g} from the JAX maps (tolerance "
+        f"{FAMILY_TOL}); cli/test card against CPU, ms a call "
+        f"(weights loaded each call) {json.dumps(cli_rows)}, P1 launches "
+        f"{p1}; webcam {json.dumps(webcam_row)}; pretrain_backbone_dense "
+        f"{json.dumps(pretrain_row)}; cli.train DDP "
+        f"{json.dumps(train_row)}, K2 {json.dumps(k2)}; --dump_eval_dir "
+        f"{json.dumps(dump_row)}; the phase took "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    return {"p1": p1, "k2": k2}
+
+
 def check_prf(what, loss, precision, recall, hmean) -> None:
     prf = (precision, recall, hmean)
     if not (np.isfinite(loss)
@@ -2600,6 +2987,7 @@ def main() -> int:
             phase_check_train(workdir)
             phase_quality(workdir)
             ocr_p1 = phase_ocr(workdir)
+            tools = phase_tools(workdir, pth)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2616,10 +3004,12 @@ def main() -> int:
             row["launches_in"] = f"serve, box mode: one batch of {N}"
     for row in db_rows:
         row["launches"] = train_launches[row["name"]]
+        row["launches_ddp"] = tools["k2"].get(row["name"], 0)
         row["launches_in"] = f"train: {TRAIN_STEPS} steps"
     for row in int8_rows:
         row["launches"] = p1_launches[row["name"]]
         row["launches_ocr"] = ocr_p1[row["name"]]
+        row["launches_cli_test"] = tools["p1"][row["name"]]
         row["launches_in"] = (f"quant: the int8 handler's box and masks "
                               f"forwards and the static forward's, batch "
                               f"of {N}")

@@ -4,7 +4,8 @@ Counterpart of ``db_text_minimal_tpu/cli/common.py``: ``load_model``,
 ``make_forward`` for the plain module forward (the JAX package's
 ``infer_mode="flax"``), ``make_folded_forward`` for the BN-folded and int8
 forwards (``models/quant_infer``) and ``build_inference_forward``, which
-chooses among the three. A pruned checkpoint's ``.widths.json`` sidecar
+chooses among the three, and ``add_inference_args``, the argparse set of
+``cli/test``. A pruned checkpoint's ``.widths.json`` sidecar
 (``models/prune``) is applied wherever a checkpoint is loaded: the plain
 model is built at its widths, and the folded trees take their shapes from
 its weights.
@@ -12,6 +13,7 @@ its weights.
 
 from __future__ import annotations
 
+import argparse
 import os
 
 import numpy as np
@@ -24,7 +26,7 @@ from ..models.quant_infer import (calibrate_activation_scales,
                                   prepare_quant_params, quant_dbnet_forward,
                                   tree_to)
 from ..train.checkpoints import load_params_any
-from ..utils import resolve_device
+from ..utils import resolve_device, str_to_bool
 
 INFER_MODES = ("flax", "folded", "int8")
 
@@ -166,3 +168,27 @@ def build_inference_forward(model_path: str, backbone: str = "resnet18",
                                   quantize=infer_mode == "int8",
                                   prob_only=prob_only, device=device)
     return forward.qvars, forward
+
+
+def add_inference_args(parser: argparse.ArgumentParser) -> None:
+    """The argparse set of ``cli/test`` (the reference's ``src/test.py``
+    21-42). ``--device`` picks the device, CUDA by default."""
+    parser.add_argument("--image_path", type=str, default="./assets/foo.jpg")
+    parser.add_argument("--model_path", type=str,
+                        default="./models/best_cp.ckpt")
+    parser.add_argument("--backbone", type=str, default="resnet18")
+    parser.add_argument("--save_dir", type=str, default="./assets")
+    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--prob_thred", type=float, default=0.5)
+    parser.add_argument("--heatmap", type=str_to_bool, default=False)
+    parser.add_argument("--thresh", type=float, default=0.5)
+    parser.add_argument("--box_thresh", type=float, default=0.7)
+    parser.add_argument("--unclip_ratio", type=float, default=1.5)
+    parser.add_argument("--is_output_polygon", type=str_to_bool,
+                        default=False)
+    parser.add_argument("--alpha", type=float, default=0.6)
+    parser.add_argument("--infer_mode", type=str, default="flax",
+                        choices=INFER_MODES,
+                        help="flax = the plain model; folded = the "
+                             "BN-folded prob-only forward; int8 = the same "
+                             "with the wide convs int8")

@@ -12,8 +12,8 @@ model's (``"bfloat16"`` on CUDA under the default configuration, as the JAX
 package on its accelerator; ``"float32"`` on the CPU), and each
 ``history`` entry also holds the epoch's wall seconds, the seconds the
 step waited on the loader and the mean host ms of a sample in a loader
-thread. The JAX debug flag
-``--dump_eval_dir`` is not ported.
+thread. ``--dump_eval_dir`` writes each test batch's preds and every
+representer's boxes, under the JAX package's file names and keys.
 
 Usage::
 
@@ -28,6 +28,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pickle
 import sys
 import time
 
@@ -110,6 +111,11 @@ def load_args(argv=None):
     parser.add_argument("--polygon", action="store_true",
                         help="also evaluate the polygon-mode postprocess, "
                              "on the host and on the device")
+    parser.add_argument("--dump_eval_dir", type=str, default=None,
+                        help="save each test batch's preds (f32, "
+                             "batch_NNN.npz) and each representer's boxes "
+                             "and scores (batch_NNN.boxes.pkl) in "
+                             "full_eval, to replay a divergence offline")
     args = parser.parse_args(argv)
     if args.line_level:
         args.polygon = True
@@ -199,7 +205,10 @@ def full_eval(trainer, state, test_loader, args, forward=None):
     postprocess wall time. ``forward(device_batch)`` gives the NHWC preds
     (default: the trainer's eval step). The first batch is run once
     untimed, so first-call builds are not charged to one row; the host rows
-    share one host copy of each batch's preds, made untimed."""
+    share one host copy of each batch's preds, made untimed. With
+    ``args.dump_eval_dir`` each batch's preds go to ``batch_NNN.npz``
+    (key ``preds``, float32) and ``{row: (boxes, scores)}`` to
+    ``batch_NNN.boxes.pkl``."""
     size = args.img_size
     if forward is None:
         def forward(device_batch):
@@ -232,7 +241,10 @@ def full_eval(trainer, state, test_loader, args, forward=None):
     raw = {(r, e): [] for r in reps for e in evaluators}
     wall = {r: 0.0 for r in reps}
     n_images = 0
-    for batch in test_loader:
+    dump_dir = getattr(args, "dump_eval_dir", None)
+    if dump_dir:
+        os.makedirs(dump_dir, exist_ok=True)
+    for batch_idx, batch in enumerate(test_loader):
         preds = forward(to_device(batch, trainer.device))
         preds_np = preds.cpu().numpy()
         batch_shape = {"shape": [(size, size)] * preds.shape[0]}
@@ -245,14 +257,22 @@ def full_eval(trainer, state, test_loader, args, forward=None):
         if n_images == 0:
             for rname in reps:
                 run(rname)
+        dump_rec = {}
         for rname in reps:
             t0 = time.perf_counter()
             output = run(rname)
             wall[rname] += time.perf_counter() - t0
+            dump_rec[rname] = output
             for ename, ev in evaluators.items():
                 raw[(rname, ename)].append(
                     QuadMetric(evaluator=ev).validate_measure(batch, output))
         n_images += preds.shape[0]
+        if dump_dir:
+            name = os.path.join(dump_dir, f"batch_{batch_idx:03d}")
+            np.savez_compressed(name + ".npz",
+                                preds=preds_np.astype(np.float32))
+            with open(name + ".boxes.pkl", "wb") as f:
+                pickle.dump(dump_rec, f)
     out = {}
     for (rname, ename), metrics in raw.items():
         gathered = QuadMetric(evaluator=evaluators[ename]).gather_measure(

@@ -16,6 +16,7 @@ queue 1 items 10 and 6.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -189,17 +190,21 @@ class DataLoader:
     """Deterministic, thread-prefetching loader: each epoch a new seeded
     permutation when shuffling, ``drop_last`` (default: when shuffling)
     keeping every batch the same shape. ``sample_seconds`` holds the wall
-    time of each sample made in the last epoch, in its worker thread. The
-    JAX loader's per-host sharding waits for data parallelism (ROADMAP
-    queue 1 item 10)."""
+    time of each sample made in the last epoch, in its worker thread. With
+    ``num_hosts`` > 1 (the processes of a distributed run, ``parallel``)
+    process ``host_id`` takes ``order[host_id::num_hosts]`` of each epoch's
+    order, a disjoint shard, as the JAX loader does."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 42, drop_last: bool | None = None,
-                 prefetch: int = 2, num_workers: int = 4):
+                 seed: int = 42, num_hosts: int = 1, host_id: int = 0,
+                 drop_last: bool | None = None, prefetch: int = 2,
+                 num_workers: int = 4):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.num_hosts = num_hosts
+        self.host_id = host_id
         self.drop_last = shuffle if drop_last is None else drop_last
         self.prefetch = prefetch
         # samples are made in a thread pool: image decode and the C++
@@ -211,11 +216,14 @@ class DataLoader:
     def _indices(self) -> np.ndarray:
         n = len(self.dataset)
         if self.shuffle:
-            return np.random.RandomState(self.seed + self.epoch).permutation(n)
-        return np.arange(n)
+            order = np.random.RandomState(self.seed + self.epoch).permutation(
+                n)
+        else:
+            order = np.arange(n)
+        return order[self.host_id::self.num_hosts]
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self._indices())
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -299,3 +307,41 @@ def build_dataset(cfg, is_training: bool):
         seed=cfg.trainer.seed if cfg.trainer else 42,
         compact_dtypes=True,
     )
+
+
+def _visualize_sample_main():
+    """The GT overlay of one training sample (the reference's
+    ``src/data_loaders.py:350-393`` ``__main__``): the image scaled to
+    uint8, its prob map in jet at 0.35 and its threshold map in jet at 0.5
+    over it, saved to ``<root_dir>/tmp/foo.jpg``. The compact layout's
+    bit-packed prob map is unpacked first.
+
+    Usage: ``python -m db_text_minimal_tpu_torch.data.datasets
+    [config.yaml]``
+    """
+    import sys
+
+    from ..config import load_config
+    from ..utils import minmax_scaler_img
+    from ..utils.visualize import overlay
+
+    cfg = load_config(sys.argv[1] if len(sys.argv) > 1 else None)
+    dataset = build_dataset(cfg, is_training=True)
+    loader = DataLoader(dataset, batch_size=1, shuffle=True, prefetch=0)
+    samples = next(iter(loader))
+    img = samples["img"][0]
+    prob = samples["prob_map"][0]
+    if prob.dtype == np.uint8 and prob.shape[-1] * 8 == img.shape[1]:
+        prob = np.unpackbits(prob, axis=-1)
+    out_dir = os.path.join(cfg.meta.root_dir or ".", "tmp")
+    os.makedirs(out_dir, exist_ok=True)
+    out = overlay(minmax_scaler_img(img),
+                  [(prob, "jet", 0.35),
+                   (samples["thresh_map"][0], "jet", 0.5)],
+                  os.path.join(out_dir, "foo.jpg"))
+    print(f"saved {out}")
+    return out
+
+
+if __name__ == "__main__":
+    _visualize_sample_main()

@@ -3,8 +3,10 @@
 Port of ``db_text_minimal_tpu/lr_schedules.py``: ``warmup_poly_lr``, a pure
 ``step -> lr`` schedule (the reference's ``WarmupPolyLR``), and
 ``ReduceLROnPlateau``, host-side state stepped once per epoch on the test
-loss whose ``scale`` multiplies the base learning rate. Both are numpy: the
-trainer evaluates them on the host and sets the optimizer's rate per step.
+loss whose ``scale`` multiplies the base learning rate, and
+``cosine_decay_schedule``, optax's (the backbone pretraining's). All are
+numpy: the trainers evaluate them on the host and set the optimizer's rate
+per step.
 """
 
 from __future__ import annotations
@@ -41,6 +43,24 @@ def warmup_poly_lr(base_lr: float, target_lr: float = 0.0,
         factor = np.clip(1.0 - t / n, 0.0, 1.0) ** power
         decay_lr = target_lr + (base_lr - target_lr) * factor
         return np.where(step < warmup_iters, warmup_lr, decay_lr)
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0):
+    """optax's ``cosine_decay_schedule`` (optax 0.2.6,
+    ``schedules/_schedule.py``), in float32 as optax computes it:
+    ``init · ((1 − alpha) · ½(1 + cos(π · min(t, N) / N)) + alpha)``."""
+    f32 = np.float32
+
+    def schedule(count):
+        count = f32(min(count, decay_steps))
+        # the f32 argument's cosine rounded to f32: XLA's within an ulp
+        cos = f32(np.cos(np.float64(f32(np.pi) * count / f32(decay_steps))))
+        cosine = f32(0.5) * (f32(1) + cos)
+        return float(f32(init_value) * ((f32(1) - f32(alpha)) * cosine
+                                        + f32(alpha)))
 
     return schedule
 

@@ -33,20 +33,49 @@ class BatchNorm2d(nn.BatchNorm2d):
     flax's ``BatchNorm`` does; ``nn.BatchNorm2d`` would take the unbiased
     one, n/(n−1) larger. Eval mode is ``nn.BatchNorm2d``'s. The state_dict
     keys are ``nn.BatchNorm2d``'s. A bfloat16 input is taken to float32
-    first, and the output is float32."""
+    first, and the output is float32.
+
+    With a ``process_group`` (set by ``parallel.wrap_model``) train mode
+    takes the statistics of every process's batch together, as the JAX
+    trainer's batch norm over a global batch split across hosts: the
+    per-channel sums of x and x² summed over the processes
+    (differentiably), the variance E[x²] − E[x]²."""
+
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            return self._forward_global(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
+            self._update_running(mean, var)
         return y
+
+    def _update_running(self, mean, var) -> None:
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
+        self.num_batches_tracked.add_(1)
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel import all_reduce_sum
+
+        count = torch.tensor(float(x.numel() // x.shape[1]),
+                             device=x.device)
+        sums = all_reduce_sum(torch.stack([x.sum(dim=(0, 2, 3)),
+                                           (x * x).sum(dim=(0, 2, 3))]))
+        count = all_reduce_sum(count)
+        mean = sums[0] / count
+        var = (sums[1] / count - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self._update_running(mean, var)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return (x * scale[:, None, None]
+                + (self.bias - mean * scale)[:, None, None])
 
 
 def _add_bias(y: torch.Tensor, bias, dtype: torch.dtype) -> torch.Tensor:

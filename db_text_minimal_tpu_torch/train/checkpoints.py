@@ -6,8 +6,11 @@ one ``torch.save`` file of ``{"model": state_dict, "optimizer": Adam
 state_dict, "step": int}``, with the reference's key names in the model's
 state_dict, and a ``<path>.json`` of metadata beside it. ``load_params_any``
 reads the model weights of such a file or of a reference-format ``.pth``
-state_dict; the JAX package's own Flax msgpack / orbax checkpoints are not
-read yet. A pruned checkpoint carries its channel widths in a
+state_dict, or of a JAX package Flax msgpack ``.ckpt`` (``flax_msgpack``:
+its ``params`` and ``batch_stats`` through ``weights.state_dict_from_jax``,
+or ``rec_state_dict_from_jax`` for a recognizer's; its ``opt_state`` and
+``step`` are read and left). An orbax checkpoint directory is not read. A
+pruned checkpoint carries its channel widths in a
 ``<path>.widths.json`` sidecar (``models/prune``): a ``CheckpointPolicy``
 given ``widths`` writes it beside every checkpoint it saves. A recognizer
 checkpoint (``cli/train_rec``) has the same three entries, its model keys
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ..models.prune import save_widths
+from .flax_msgpack import is_flax_msgpack, msgpack_restore
 
 # the reference's backbone modules that its forward pass never calls
 _UNUSED_PREFIXES = ("backbone.fc.", "backbone.avgpool.", "backbone.smooth.")
@@ -48,19 +52,37 @@ def restore_checkpoint(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def flax_state_dict(path: str) -> dict:
+    """The model state_dict of a JAX package Flax msgpack checkpoint: a
+    detector's (its params hold ``backbone``) or a recognizer's."""
+    from ..weights import rec_state_dict_from_jax, state_dict_from_jax
+
+    with open(path, "rb") as f:
+        state = msgpack_restore(f.read())
+    params, stats = state["params"], state.get("batch_stats", {})
+    if "backbone" in params:
+        return state_dict_from_jax(params, stats)
+    return rec_state_dict_from_jax(params, stats)
+
+
 def load_params_any(path: str) -> dict:
     """Model state_dict from a ``.pth`` file (with the ``module.`` prefix of
-    a DataParallel save and the reference's unused modules removed) or from
-    a checkpoint of ``save_checkpoint``."""
+    a DataParallel save and the reference's unused modules removed), from
+    a checkpoint of ``save_checkpoint`` or from a JAX package Flax
+    checkpoint (``flax_state_dict``)."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory, an orbax checkpoint: only Flax msgpack "
+            f"checkpoints of the JAX package load (ROADMAP queue 1, orbax)")
     if path.endswith(".pth"):
         sd = torch.load(path, map_location="cpu", weights_only=True)
     elif zipfile.is_zipfile(path):
         sd = restore_checkpoint(path).get("model")
+    elif is_flax_msgpack(path):
+        sd = flax_state_dict(path)
     else:
-        raise NotImplementedError(
-            f"{path}: only .pth state_dicts and the port's own checkpoints "
-            f"load; Flax msgpack/orbax .ckpt loading is ROADMAP queue 1 "
-            f"item 7")
+        raise ValueError(f"{path} is neither a torch file nor a Flax "
+                         f"msgpack checkpoint")
     if not isinstance(sd, dict):
         raise TypeError(f"{path} holds a {type(sd).__name__}, not a "
                         f"state_dict")

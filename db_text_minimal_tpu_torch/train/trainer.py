@@ -14,7 +14,14 @@ Port of ``db_text_minimal_tpu/train/trainer.py`` for one card:
   K3–K6) unless ``metric.device_boxes`` or ``device_boxes_in_train`` is
   off;
 - the three-checkpoint policy and the warmup-poly (per step) or
-  reduce-on-plateau (per epoch) learning rate.
+  reduce-on-plateau (per epoch) learning rate;
+- with a ``tb_writer`` (a TensorBoard ``SummaryWriter``), the JAX
+  trainer's scalars under its tags and steps and its image grids
+  (``utils/visualize.visualize_tfb``) at its points;
+- in a distributed run (``parallel``: a process group joined) the model
+  is held in ``DistributedDataParallel`` (``TrainState.ddp``), its batch
+  norms and the loss over the global batch, and only process 0 writes
+  checkpoints.
 
 Losses and histograms stay on the device between log points: nothing is
 read back per step. Scalars are logged every ``hps.log_iter`` steps and kept
@@ -24,7 +31,8 @@ default), as the JAX trainer on its accelerator, with parameters, the loss
 and Adam in float32; otherwise, and always on the CPU, float32 with TF32
 off for cuDNN and matmul, the parity configuration (the ``Trainer``
 constructor sets both flags for the process). The rest of the JAX
-``parallel`` section (the mesh) is ignored on one card.
+``parallel`` section (the mesh) is ignored: the processes of a
+distributed run are the data axis.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import losses as L
+from .. import parallel
 from ..config import ConfigNode
 from ..lr_schedules import ReduceLROnPlateau, warmup_poly_lr
 from ..metrics import QuadMetric, RunningScore
@@ -45,10 +54,17 @@ from ..models.prune import widths_to_model_kwargs
 from ..postprocess import DeviceBoxRepresenter, SegDetectorRepresenter
 from ..utils import (CAFFE_MEAN, StepTimer, resolve_device, setup_determinism,
                      setup_logger)
+from ..utils.visualize import visualize_tfb
 from .checkpoints import CheckpointPolicy, load_params_any, restore_checkpoint
 
 ARRAY_KEYS = ("img", "prob_map", "supervision_mask", "thresh_map",
               "text_area_map")
+# the JAX trainer's TensorBoard tags of the DBLossOutput fields
+TB_LOSS_TAGS = (("TRAIN/LOSS/total_loss", "total_loss"),
+                ("TRAIN/LOSS/loss", "prob_threshold_loss"),
+                ("TRAIN/LOSS/prob_loss", "prob_loss"),
+                ("TRAIN/LOSS/threshold_loss", "threshold_loss"),
+                ("TRAIN/LOSS/binary_loss", "binary_loss"))
 
 
 def array_batch(batch: dict) -> dict:
@@ -96,10 +112,13 @@ def device_preprocess(batch: dict) -> dict:
 
 @dataclass
 class TrainState:
-    """The model, its optimizer and the count of steps taken."""
+    """The model, its optimizer and the count of steps taken; in a
+    distributed run ``ddp``, the model in ``DistributedDataParallel``,
+    which the train step runs."""
     model: DBTextModel
     optimizer: torch.optim.Optimizer
     step: int = 0
+    ddp: torch.nn.Module | None = None
 
     def state_dict(self) -> dict:
         return {"model": self.model.state_dict(),
@@ -221,7 +240,9 @@ def build_train_step(cfg):
     """``train_step(state, batch, lr) -> (state, DBLossOutput, hist,
     preds)`` for a batch of tensors on the model's device. It updates
     ``state`` in place; the gradients stay in the parameters' ``.grad``
-    until the next step."""
+    until the next step. With ``state.ddp`` in a group of more than one,
+    the loss, the histogram and the preds returned are the global batch's
+    (``parallel.gather_batch``)."""
     alpha = float(cfg.optimizer.alpha)
     settings = _loss_settings(cfg)
     score_thresh = float(cfg.metric.thred_text_score)
@@ -232,7 +253,12 @@ def build_train_step(cfg):
         model.train()
         set_lr(optimizer, lr)
         optimizer.zero_grad(set_to_none=True)
-        preds = model(batch["img"])
+        net = model if state.ddp is None else state.ddp
+        preds = net(batch["img"])
+        if state.ddp is not None and parallel.world_size() > 1:
+            preds = parallel.gather_batch(preds)
+            batch = {k: parallel.gather_batch(v) for k, v in batch.items()
+                     if k != "img"}
         out = L.db_loss(preds, batch["prob_map"], batch["supervision_mask"],
                         batch["thresh_map"], batch["text_area_map"],
                         alpha=alpha, **settings)
@@ -272,10 +298,13 @@ class Trainer:
     """The epoch loop over ``train_loader`` and ``test_loader``, any
     iterables of batch dicts (``data.datasets.DataLoader`` batches). The
     device is ``cfg.meta.device``, CUDA by default; on a machine without a
-    GPU the caller must set it to ``"cpu"``."""
+    GPU the caller must set it to ``"cpu"``. ``tb_writer``: a TensorBoard
+    ``SummaryWriter`` or None."""
 
-    def __init__(self, cfg: ConfigNode, train_loader=None, test_loader=None):
+    def __init__(self, cfg: ConfigNode, train_loader=None, test_loader=None,
+                 tb_writer=None):
         self.cfg = cfg
+        self.tb_writer = tb_writer
         self.device = resolve_device(cfg.meta.device or "cuda")
         self.compute_dtype = compute_dtype(cfg, self.device)
         torch.backends.cudnn.allow_tf32 = False
@@ -314,7 +343,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
         """Seeded random weights, then the pretrained backbone and the
-        finetune checkpoint where the config names files that exist. A
+        finetune checkpoint where the config names files that exist; in a
+        distributed run the model also in ``DistributedDataParallel``. A
         pruned model's widths (``cfg.model.widths``, the checkpoint's
         sidecar, set by ``cli.train`` and ``quality_bench``) give the
         narrow architecture. A deformable backbone loads a torchvision
@@ -347,7 +377,9 @@ class Trainer:
             self.logger.info("Loading finetune checkpoint: %s", path)
             model.load_state_dict(load_params_any(path), strict=True)
         model.to(self.device)
-        return TrainState(model, make_optimizer(cfg, model))
+        ddp = (parallel.wrap_model(model)
+               if torch.distributed.is_initialized() else None)
+        return TrainState(model, make_optimizer(cfg, model), ddp=ddp)
 
     def resume_state(self, checkpoint_path: str) -> TrainState:
         """The full training state of a checkpoint (weights, BN statistics,
@@ -404,11 +436,18 @@ class Trainer:
         def flush(final: bool = False):
             nonlocal pending
             for gs, lr_v, lo in pending:
-                self.loss_log.append({"step": gs, "lr": lr_v, **{
-                    k: float(v) for k, v in lo._asdict().items()}})
+                row = {"step": gs, "lr": lr_v, **{
+                    k: float(v) for k, v in lo._asdict().items()}}
+                self.loss_log.append(row)
+                self._scalars(gs, {
+                    name: row[key] for name, key in TB_LOSS_TAGS} | {
+                    "TRAIN/HPs/lr": lr_v})
             if pending:
                 running.confusion_matrix = hist_sum.double().cpu().numpy()
                 scores, _ = running.get_scores()
+                self._scalars(pending[-1][0], {
+                    "TRAIN/ACC_IOU/acc": scores["Mean Acc"],
+                    "TRAIN/ACC_IOU/iou_shrink_map": scores["Mean IoU"]})
                 if not final:
                     row = self.loss_log[-1]
                     self.logger.info(
@@ -446,6 +485,8 @@ class Trainer:
                              "loader_wait_s": wait}
         if timer.images_per_sec > 0:
             self.logger.info("throughput: %.1f img/s", timer.images_per_sec)
+            self._scalars(self.global_step, {
+                "TRAIN/HPs/images_per_sec": timer.images_per_sec})
         return state, train_loss / max(n_batches, 1), running, last
 
     # ------------------------------------------------------------------
@@ -463,6 +504,10 @@ class Trainer:
         size = int(cfg.hps.img_size)
         loss_sum = torch.zeros((), device=dev)
         hist_sum = torch.zeros((2, 2), device=dev)
+        # one random test batch gets the image grids (src/train.py:249-257)
+        visualize_index = (np.random.randint(len(self.test_loader))
+                           if self.tb_writer is not None
+                           and len(self.test_loader) else -1)
 
         def finish(batch, preds):
             """Boxes and metrics of a batch, on the host while the device
@@ -479,6 +524,8 @@ class Trainer:
             preds, loss, hist = self._eval_step(state, to_device(batch, dev))
             loss_sum += loss
             hist_sum += hist
+            if n == visualize_index:
+                self._grids(batch, preds, "TEST")
             n += 1
             if pending is not None:
                 finish(*pending)
@@ -500,27 +547,51 @@ class Trainer:
         state = state if state is not None else self.init_state()
         epochs = no_epochs if no_epochs is not None else int(
             cfg.hps.no_epochs)
+        # one writer of the checkpoints in a distributed run
         policy = CheckpointPolicy(cfg.meta.root_dir or ".",
                                   cfg.model.best_cp_path,
                                   cfg.model.last_cp_path,
                                   cfg.model.best_hmean_cp_path,
-                                  widths=cfg.model.widths)
+                                  widths=cfg.model.widths) \
+            if parallel.rank() == 0 else None
         history = []
         for epoch in range(epochs):
-            state, train_loss, _, _ = self.train_epoch(state, epoch)
+            state, train_loss, _, last = self.train_epoch(state, epoch)
             self.logger.info("Train loss: %.5f", train_loss)
+            if last[0] is not None:
+                # per-epoch image grids (src/train.py:215-220)
+                self._grids(*last, "TRAIN")
             test_loss, _, recall, precision, hmean = self.eval_epoch(state)
             self.logger.info(
                 "TEST/Recall: %.4f - TEST/Precision: %.4f - TEST/HMean: %.4f",
                 recall, precision, hmean)
             self.logger.info("[%d] - test_loss: %.5f", self.global_step,
                              test_loss)
-            policy.on_epoch_end(state.state_dict(), train_loss=train_loss,
-                                test_loss=test_loss, hmean=hmean, epoch=epoch)
+            self._scalars(self.global_step, {
+                "TEST/LOSS/val_loss": test_loss, "TEST/recall": recall,
+                "TEST/precision": precision, "TEST/hmean": hmean})
+            if policy is not None:
+                policy.on_epoch_end(state.state_dict(), train_loss=train_loss,
+                                    test_loss=test_loss, hmean=hmean,
+                                    epoch=epoch)
             if self.lrs_mode == "reduce":
                 self.plateau.step(test_loss)
             history.append({"epoch": epoch, "train_loss": train_loss,
                             "test_loss": test_loss, "hmean": hmean})
-        policy.on_train_end(state.state_dict(), epochs)
+        if policy is not None:
+            policy.on_train_end(state.state_dict(), epochs)
         self.logger.info("Training completed")
         return state, history
+
+    # ------------------------------------------------------------------
+    def _scalars(self, step: int, values: dict) -> None:
+        if self.tb_writer is not None:
+            for tag, value in values.items():
+                self.tb_writer.add_scalar(tag, value, step)
+
+    def _grids(self, batch: dict, preds: torch.Tensor, mode: str) -> None:
+        if self.tb_writer is not None:
+            visualize_tfb(self.tb_writer, batch["img"],
+                          preds.float().cpu().numpy(), self.global_step,
+                          thresh=float(self.cfg.metric.thred_text_score),
+                          mode=mode)

@@ -1,9 +1,10 @@
 """Shared helpers: image reading and preprocessing, box drawing, device selection,
-seeding, logging and step timing.
+seeding and logging.
 
-Counterpart of ``db_text_minimal_tpu/utils/__init__.py``, of
-``filter_zero_boxes`` in ``utils/visualize.py`` and of ``StepTimer`` in
-``utils/profiling.py``. The Caffe means
+Counterpart of ``db_text_minimal_tpu/utils/__init__.py`` and of
+``filter_zero_boxes`` in ``utils/visualize.py``. The overlays are in
+``utils/visualize.py``, the profiler trace and ``StepTimer`` (re-exported
+here) in ``utils/profiling.py``. The Caffe means
 ``[103.939, 116.779, 123.68]`` are subtracted from images in RGB channel
 order, exactly as the reference does (BGR means applied to RGB data); the
 quirk is kept for checkpoint parity.
@@ -14,10 +15,11 @@ from __future__ import annotations
 import logging
 import os
 import random
-import time
 
 import numpy as np
 import torch
+
+from .profiling import StepTimer  # noqa: F401  (re-exported)
 
 CAFFE_MEAN = (103.939, 116.779, 123.68)
 
@@ -28,6 +30,16 @@ def str_to_bool(value: str) -> bool:
     if value.lower() in {"true", "t", "1", "yes", "y"}:
         return True
     raise ValueError("{} is not a valid boolean value".format(value))
+
+
+def minmax_scaler_img(img: np.ndarray) -> np.ndarray:
+    """An array scaled to uint8 over its own range (all zeros when the
+    range is 0)."""
+    img = np.asarray(img)
+    rng = img.max() - img.min()
+    if rng == 0:
+        return np.zeros_like(img, dtype="uint8")
+    return ((img - img.min()) * (1 / rng * 255)).astype("uint8")
 
 
 def test_resize(img: np.ndarray, size: int = 640,
@@ -142,30 +154,3 @@ def setup_logger(logger_name: str = "dbtext-torch",
         logger.addHandler(file_handle)
     logger.setLevel(logging.DEBUG)
     return logger
-
-
-class StepTimer:
-    """Rolling throughput meter: ``tick(batch_size)`` per step, read
-    ``images_per_sec``. The first ``warmup`` steps are not counted. On the
-    card a step returns before the device finishes, so this is the rate at
-    which steps are issued, which the device's rate bounds once its queue
-    is full."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self.steps = 0
-        self.images = 0
-        self.start = None
-
-    def tick(self, batch_size: int) -> None:
-        self.steps += 1
-        if self.steps == self.warmup:
-            self.start = time.perf_counter()
-        elif self.steps > self.warmup:
-            self.images += batch_size
-
-    @property
-    def images_per_sec(self) -> float:
-        if self.start is None or self.images == 0:
-            return 0.0
-        return self.images / (time.perf_counter() - self.start)

@@ -232,10 +232,15 @@ def test_saved_state_restores_bit_equal(tmp_path):
     assert torch.equal(moments["exp_avg"],
                        optimizer.state_dict()["state"][0]["exp_avg"])
     assert checkpoints.load_params_any(path).keys() == state["model"].keys()
+    # a Flax msgpack file is read now (test_torch_flax_ckpt.py); a
+    # truncated one is refused, and an orbax directory names the ROADMAP
     with open(tmp_path / "flax.ckpt", "wb") as f:
         f.write(b"\x82\xa6params")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="truncated"):
         checkpoints.load_params_any(str(tmp_path / "flax.ckpt"))
+    os.mkdir(tmp_path / "orbax.ckpt")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        checkpoints.load_params_any(str(tmp_path / "orbax.ckpt"))
 
 
 def test_config_defaults_and_file_match_jax(tmp_path, monkeypatch):

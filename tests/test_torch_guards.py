@@ -48,9 +48,13 @@ print(len(names))
                    "models.prune", "cli.prune", "cli.export",
                    "serve.export", "serve.client", "models.recognition",
                    "train.recognition_trainer", "cli.ocr", "cli.rec_bench",
-                   "cli.train_rec", "models.deform"):
+                   "cli.train_rec", "models.deform", "utils",
+                   "utils.visualize", "utils.profiling", "cli.test",
+                   "cli.webcam", "cli.pretrain_backbone",
+                   "train.backbone_pretrain", "train.flax_msgpack",
+                   "parallel"):
         assert f"db_text_minimal_tpu_torch.{module}" in names
-    assert int(count) >= 59
+    assert int(count) >= 66
 
 
 def test_port_sources_name_no_jax_import():
@@ -125,3 +129,30 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path):
              str(tmp_path / "r.json"), "--saved_model", path]))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_rec.main(train_rec.load_args(["--crop_dir", str(tmp_path)]))
+    from db_text_minimal_tpu_torch.cli import pretrain_backbone
+    from db_text_minimal_tpu_torch.cli import test as test_cli
+    from db_text_minimal_tpu_torch.cli import webcam
+    from db_text_minimal_tpu_torch.train import backbone_pretrain
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        test_cli.main(test_cli.load_args(["--image_path",
+                                          str(tmp_path / "x.jpg"),
+                                          "--model_path", path]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        webcam.main(webcam.load_args(["--det_model_path", path,
+                                      "--video_path",
+                                      str(tmp_path / "x.mp4")]))
+    dirs = [str(tmp_path), str(tmp_path), str(tmp_path / "bb.pth")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pretrain_backbone.main(["--train_dir", dirs[0], "--gt_dir", dirs[1],
+                                "--out", dirs[2]])
+    for pretrain in (backbone_pretrain.pretrain_backbone,
+                     backbone_pretrain.pretrain_backbone_dense):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pretrain(*dirs)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(train.load_args(
+            ["--config", str(tmp_path / "none.yaml"), "--epochs", "1",
+             "--coordinator_address", "127.0.0.1:1", "--num_processes", "1",
+             "--process_id", "0"]))
+    assert not torch.distributed.is_initialized()
