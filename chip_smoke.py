@@ -7,9 +7,10 @@ Run from the repository root on a machine with a CUDA GPU::
 
 Phases, one output line each (or more), stopping at the first failure:
 
-1. build   - compile the CUDA kernels (csrc/cc.cu and csrc/int8_epilogue.cu,
-             nvcc sm_90a), the host geometry library and the Triton
-             kernels K1 and K2 (ops/db_step_triton.py), in parallel.
+1. build   - compile the CUDA kernels (csrc/cc.cu, csrc/int8_epilogue.cu
+             and csrc/deform.cu, nvcc sm_90a), the host geometry library
+             and the Triton kernels K1 and K2 (ops/db_step_triton.py), in
+             parallel.
 2. kernels - hold P1 (csrc/int8_epilogue.cu) bit for bit against its plain
              version in both forms (f32 at the FPN output conv's 8x160x160
              x256, int8 at a layer-2 conv1's 8x80x80x128), and each kernel
@@ -31,6 +32,19 @@ Phases, one output line each (or more), stopping at the first failure:
              by their kernels) on the same masks and on maps of rotated
              bars (0, 90, +-45 degrees, small angles near 0), at both
              sizes. Every row logs the card's time split by launch.
+2b. d1     - D1 (csrc/deform.cu), the deformable conv's sampling: its
+             forward (deform_im2col) and backward (deform_col2im) held to
+             their plain halves on the card at each of deformable_resnet50's
+             six deformable conv shapes at batch 8, 640x640 (80x80 C=128
+             at stride 1 and from 160x160 at stride 2; 40x40 C=256 and
+             20x20 C=512, each also from stride 2), bf16 and fp32 columns,
+             zero and random offsets (std 3 px, taps outside the map):
+             fp32 columns within 1e-5 of max |x|, bf16 within one bf16
+             ulp, dx within 1e-5 and doffsets within 1e-4 of their
+             largest. Each shape timed cold against its bound; the rows
+             at 8x80x80x128, bf16, with the whole conv's bound and one
+             F.grid_sample over the 9-tap grid (its backward for the
+             backward row) as library_ms.
 3. serve   - serve one batch of 8 synthetic 640x480 images through the
              port's handler in box mode, infer_mode "flax": resnet18 + FPN
              (inner 256) + FusedDBHead, bf16 (the default on the card),
@@ -106,7 +120,16 @@ Phases, one output line each (or more), stopping at the first failure:
              dcn_offset_lr_mult 0.1) and a step at batch 16 timed;
              DeformConv's share of deformable_resnet50's forward (batch 8)
              and train step (batch 16) by torch.profiler under
-             record_function ranges.
+             record_function ranges, and D1's kernels' time by name. D1
+             launches 6 times in a served deformable_resnet18 forward, 13
+             in deformable_resnet50's and 13 + 13 in its train step; the
+             two deformable families' forwards (bf16, fp32) and bf16 step
+             at batch 16 are timed in turns with D1's kernels and with
+             the plain DeformConv (plain_deform_forward, PR 14's module
+             swapped into the module instances). deformable_resnet18's
+             fp32 model is exported on the card (flax mode, symbolic
+             batch, uint8 input), loaded back and held to its live
+             forward, D1 launching 6 times in a forward of the archive.
 9. check   - device boxes against the host rect-mode SegDetectorRepresenter
              on synthetic scenes, device polygons against the host polygon
              mode on the kernel scenes, K7 on the card against K7 on the
@@ -194,6 +217,7 @@ from db_text_minimal_tpu_torch.models import DBTextModel
 from db_text_minimal_tpu_torch.models import quant_infer as Q
 from db_text_minimal_tpu_torch.ops import cc, geometry
 from db_text_minimal_tpu_torch.ops import db_step as D
+from db_text_minimal_tpu_torch.ops import deform as DF
 from db_text_minimal_tpu_torch.ops import int8 as I8
 from db_text_minimal_tpu_torch.postprocess import (DeviceBoxRepresenter,
                                                    DevicePolyRepresenter,
@@ -208,11 +232,14 @@ SEED = 0
 N, SIZE, K = 8, 640, 1000
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit rate
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
 SRC = "db_text_minimal_tpu_torch/csrc/cc.cu"
 JAX_CC = "db_text_minimal_tpu/ops/pallas/cc.py"
 TRITON_SRC = "db_text_minimal_tpu_torch/ops/db_step_triton.py"
 JAX_DB_STEP = "db_text_minimal_tpu/ops/pallas/db_step.py"
 INT8_SRC = "db_text_minimal_tpu_torch/csrc/int8_epilogue.cu"
+DEFORM_SRC = "db_text_minimal_tpu_torch/csrc/deform.cu"
+JAX_DEFORM = "db_text_minimal_tpu/models/deform.py"
 PROBE = "benchmarks/int8_conv_probe.py"
 # P1 launches per forward: every int8 conv ends in it (17 with skip=());
 # with static scales 7 of them write the next conv's int8 input
@@ -248,7 +275,8 @@ KERNEL_IDS = {"fused_db_step": "K1", "db_step_forward": "K2",
               "hole_stats_served": "K6", "bbox_stats": "K7",
               "poly_stats": "K7", "poly_stats_served": "K7",
               "pack_bits": "K7", "pack_bits_w100": "K7", "fast_boxes": "K8",
-              "int8_epilogue_f32": "P1", "int8_epilogue_int8": "P1"}
+              "int8_epilogue_f32": "P1", "int8_epilogue_int8": "P1",
+              "deform_im2col": "D1", "deform_col2im": "D1"}
 
 
 # the L2 flush between timed calls, and its kernel's name in the traces
@@ -291,6 +319,12 @@ FAMILY_SERVE = (("resnet34", "FPN"), ("resnet50", "FPN"),
 FAMILY_CHECK = (("deformable_resnet50", "FPN"), ("resnet18", "FPEM_FFM"))
 FAMILY_STEPS, FAMILY_TIMED_STEPS, FAMILY_REPS = 3, 5, 5
 OFFSET_STD, FAMILY_TOL = 0.01, 1e-4
+# the deformable convs of each deformable family: D1's launches a forward
+# (im2col) and a backward (col2im); their forwards and a bf16 step at
+# batch 16 timed with D1's kernels and with the plain function swapped in,
+# in TURNS rounds of (kernel, plain)
+DCN_CONVS = {"deformable_resnet18": 6, "deformable_resnet50": 13}
+TURNS = 2
 
 
 # the tools phase: the committed Flax fixture (tests/make_flax_fixture.py:
@@ -470,14 +504,16 @@ def build_triton() -> None:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         jobs = [pool.submit(cc.load_library),
                 pool.submit(I8.load_library),
+                pool.submit(DF.load_library),
                 pool.submit(geometry.load_library),
                 pool.submit(build_triton)]
         for job in jobs:
             job.result()
-    log(f"build ok: cc.cu and int8_epilogue.cu (nvcc sm_90a), geometry.cpp "
+    log(f"build ok: cc.cu, int8_epilogue.cu and deform.cu (nvcc sm_90a), "
+        f"geometry.cpp "
         f"(g++) and K1, K2 forward and backward (Triton) in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -1014,6 +1050,215 @@ def phase_int8_kernels() -> list[dict]:
     return rows
 
 
+# D1: every distinct shape of deformable_resnet50's deformable convs at
+# batch N, 640x640: (input size, channels, stride); the conv's output
+# channels equal its input's (planes). deformable_resnet18's six are the
+# stride-1 ones.
+DEFORM_SHAPES = ((SIZE // 4, 128, 2), (SIZE // 8, 128, 1),
+                 (SIZE // 8, 256, 2), (SIZE // 16, 256, 1),
+                 (SIZE // 16, 512, 2), (SIZE // 32, 512, 1))
+DEFORM_ROW_SHAPE = (SIZE // 8, 128, 1)    # the rows: 4 of the 13 convs
+DEFORM_OFFSET_STD = 3.0                   # px: many taps leave the map
+
+
+def deform_inputs(h: int, c: int, stride: int, offsets: str):
+    """f32 NHWC x (N, h, h, c) (a ReLU's output, as the blocks feed the
+    conv) and f32 offsets: zero (every tap on an integer coordinate, as at
+    init) or normal of DEFORM_OFFSET_STD px, on the card."""
+    g = torch.Generator().manual_seed(SEED + h + c + stride)
+    x = torch.relu(torch.randn((N, h, h, c), generator=g))
+    oh = DF.out_size(h, stride)
+    off = torch.zeros((N, oh, oh, 18))
+    if offsets == "random":
+        off = torch.randn((N, oh, oh, 18), generator=g) * DEFORM_OFFSET_STD
+    return x.cuda(), off.cuda()
+
+
+def check_deform(x, off, stride, dtype, what):
+    """D1 forward and backward against the plain halves on the same
+    inputs: f32 columns within 1e-5 of max |x|, bf16 ones within one bf16
+    ulp of the plain value; dx within 1e-5 and doffsets within 1e-4 of
+    each one's largest (atomic order). Returns (cols err, cols tol, dx
+    err, dx tol, doffsets err, doffsets tol) and the column gradient."""
+    cols = DF.deform_im2col(x, off, stride, dtype)
+    ref = DF.deform_im2col_plain(x, off, stride, dtype)
+    diff = (cols.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        tol = 1e-5 * x.abs().max().item()
+        ok = diff.max().item() <= tol
+    else:
+        tol = 2.0 ** -7 * ref.float().abs().max().item()
+        ok = bool((diff <= ref.float().abs() * 2.0 ** -7).all())
+    if not ok:
+        raise AssertionError(f"{what}: columns differ by "
+                             f"{diff.max().item()}")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    gcols = torch.randn(tuple(cols.shape), generator=g, device="cuda").to(
+        dtype)
+    dx, doff = DF.deform_col2im(x, off, gcols, stride)
+    dx_p, doff_p = DF.deform_col2im_plain(x, off, gcols, stride)
+    errs = [diff.max().item(), tol]
+    for name, got, want, rel in (("dx", dx, dx_p, 1e-5),
+                                 ("doffsets", doff, doff_p, 1e-4)):
+        err = (got - want).abs().max().item()
+        leaf_tol = rel * want.abs().max().item()
+        if not (torch.isfinite(got).all() and err <= leaf_tol):
+            raise AssertionError(f"{what}: {name} max_abs_err {err} > "
+                                 f"{leaf_tol}")
+        errs += [err, leaf_tol]
+    return errs, gcols
+
+
+def grid_sample_call(x, off, stride):
+    """One ``F.grid_sample`` (bilinear, zeros, align_corners=True) that
+    samples the same 9 taps: the input as NCHW, the grid (N, OH, 9·OW, 2)
+    of the taps' coordinates normalised to [-1, 1]. Returns (input, grid),
+    both requiring grad, and the call."""
+    import torch.nn.functional as F
+
+    n, h, w, _ = x.shape
+    y, xs = DF._coords(off, stride)                    # (9, N, OH, OW)
+    grid = torch.stack([xs / (w - 1) * 2 - 1, y / (h - 1) * 2 - 1], -1)
+    grid = grid.permute(1, 2, 0, 3, 4).reshape(n, y.shape[2], -1, 2)
+    inp = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    grid = grid.contiguous().requires_grad_()
+
+    def call():
+        return F.grid_sample(inp, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    return inp, grid, call
+
+
+def deform_bytes(h: int, c: int, stride: int, col_bytes: int,
+                 backward: bool) -> int:
+    """The least bytes D1 must move at a shape: the f32 input read once,
+    the offsets read, the columns written (forward); or the column
+    gradient read and dx and doffsets written besides (backward)."""
+    oh = DF.out_size(h, stride)
+    x_b, off_b = N * h * h * c * 4, N * oh * oh * 18 * 4
+    cols_b = 9 * N * oh * oh * c * col_bytes
+    if not backward:
+        return x_b + off_b + cols_b
+    return cols_b + x_b + off_b + x_b + off_b
+
+
+def deform_conv_bound(h: int, c: int, stride: int, backward: bool
+                      ) -> tuple[float, str]:
+    """The whole bf16 deformable conv's bound (F = C), the target of a
+    fused design: its FLOPs at the bf16 peak against the input, offsets
+    and output bytes (the backward: twice the FLOPs, dgrad and wgrad;
+    the output's gradient read, dx, doffsets and the kernel's gradient
+    written)."""
+    oh = DF.out_size(h, stride)
+    p = N * oh * oh
+    flops = 2 * p * 9 * c * c * (2 if backward else 1)
+    x_b, off_b, out_b = N * h * h * c * 4, p * 18 * 4, p * c * 2
+    moved = x_b + off_b + out_b + ((x_b + off_b + 9 * c * c * 4)
+                                   if backward else 0)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_deform_kernels() -> list[dict]:
+    """D1 forward (deform_im2col) and backward (deform_col2im) against
+    their plain halves on the card at each distinct deformable conv shape
+    of deformable_resnet50 (batch 8, 640x640), in both compute dtypes, at
+    zero and at random offsets (check_deform); each shape timed cold
+    (events after the L2 flush) against its bound; the rows at
+    DEFORM_ROW_SHAPE in bf16 with device ms, plain ms, the whole conv's
+    bound and one F.grid_sample call (its backward for the backward row)
+    as the library's time."""
+    rows, shapes = [], []
+    for h, c, stride in DEFORM_SHAPES:
+        for offsets in ("zero", "random"):
+            x, off = deform_inputs(h, c, stride, offsets)
+            if offsets == "random":
+                ys = (torch.arange(off.shape[1], device="cuda") * stride)[
+                    None, :, None, None] + off[..., 0::2]
+                if not ((ys < -1).any() and (ys > h).any()):
+                    raise AssertionError("D1: no tap leaves the map")
+            for dtype in (torch.bfloat16, torch.float32):
+                what = (f"D1 {N}x{h}x{h}x{c} stride {stride} {offsets} "
+                        f"offsets {str(dtype)[6:]}")
+                errs, gcols = check_deform(x, off, stride, dtype, what)
+                if offsets == "zero":
+                    continue
+                ms_f = timed(lambda: DF.deform_im2col(x, off, stride,
+                                                      dtype), 10)
+                ms_b = timed(lambda: DF.deform_col2im(x, off, gcols,
+                                                      stride), 10)
+                cb = 2 if dtype == torch.bfloat16 else 4
+                bf = deform_bytes(h, c, stride, cb, False)
+                bb = deform_bytes(h, c, stride, cb, True)
+                shapes.append({
+                    "shape": [N, h, h, c], "stride": stride,
+                    "dtype": str(dtype)[6:], "errs": errs,
+                    "im2col_ms": ms_f,
+                    "im2col_bound_ms": bf / HBM_BYTES_PER_S * 1e3,
+                    "col2im_ms": ms_b,
+                    "col2im_bound_ms": bb / HBM_BYTES_PER_S * 1e3})
+                if (h, c, stride) == DEFORM_ROW_SHAPE \
+                        and dtype == torch.bfloat16:
+                    rows += deform_rows(x, off, stride, dtype, gcols, errs)
+                del gcols
+            del x, off
+            torch.cuda.empty_cache()
+    log(f"D1 shapes (cold, ms by CUDA events after the L2 flush; bound = "
+        f"bytes / 3.35 TB/s): {json.dumps(shapes)}")
+    log(f"D1 kernels ok: forward and backward held to their plain halves "
+        f"at {len(DEFORM_SHAPES)} shapes x 2 dtypes x zero and random "
+        f"offsets")
+    return rows
+
+
+def deform_rows(x, off, stride, dtype, gcols, errs) -> list[dict]:
+    """The D1 rows of the kernels line at one shape: kernel_row's times
+    and bound, the whole conv's bound, and F.grid_sample's forward (the
+    forward row) or backward (the backward row) as library_ms."""
+    n, h, _, c = x.shape
+    cb = 2 if dtype == torch.bfloat16 else 4
+    _, oh, ow, _ = off.shape
+    elems = 9 * n * oh * ow * c
+    inp, grid, call = grid_sample_call(x, off, stride)
+    out = call()
+    ref = DF.deform_im2col_plain(x, off, stride, torch.float32)
+    lib_gap = (out.permute(0, 2, 3, 1).reshape(n, oh, 9, ow, c).permute(
+        2, 0, 1, 3, 4).reshape(9, -1, c) - ref).abs().max().item()
+    gout = torch.randn_like(out)
+    rows = []
+    for name, err, tol, kernel, plain, backward, library, ops in (
+            ("deform_im2col", errs[0], errs[1],
+             lambda: DF.deform_im2col(x, off, stride, dtype),
+             lambda: DF.deform_im2col_plain(x, off, stride, dtype), False,
+             call, 9),
+            ("deform_col2im", errs[2], errs[3],
+             lambda: DF.deform_col2im(x, off, gcols, stride),
+             lambda: DF.deform_col2im_plain(x, off, gcols, stride), True,
+             lambda: torch.autograd.grad(out, (inp, grid), gout,
+                                         retain_graph=True), 21)):
+        row = kernel_row(name, "cuda", DEFORM_SRC, f"{JAX_DEFORM}:24", err,
+                         tol, kernel, plain,
+                         deform_bytes(h, c, stride, cb, backward),
+                         elems * ops)
+        row["library_ms"] = timed(library, 10)
+        row["conv_bound_ms"], row["conv_bound_by"] = deform_conv_bound(
+            h, c, stride, backward)
+        row["shape"] = [n, h, h, c]
+        row["stride"] = stride
+        row["dtype"] = str(dtype)[6:]
+        row["note"] = (
+            "library_ms: F.grid_sample over the 9-tap grid "
+            + ("(its backward)" if backward else "(f32 samples, no cast)")
+            + f", max abs {lib_gap:.3g} from the plain f32 columns")
+        if backward:
+            row["max_abs_err_of"] = "dx"
+            row["doffsets_max_abs_err"], row["doffsets_tol"] = errs[4:6]
+        rows.append(row)
+    return rows
+
+
 def synthetic_images() -> list[bytes]:
     from PIL import Image
 
@@ -1289,9 +1534,9 @@ def check_same_boxes(what: str, got: list, ref: list) -> float:
 
 
 def drive_export(what: str, infer, live, batch_u8: np.ndarray,
-                 want_p1: int, int8: bool = False) -> dict:
+                 want_p1: int, int8: bool = False, want_d1: int = 0) -> dict:
     """One archive: batch 1 and batch N from it against the live forward
-    of the same mode on the same uint8 batch, P1's launches in one
+    of the same mode on the same uint8 batch, P1's and D1's launches in one
     forward of N (counts set to 0 just before, read just after), and both
     forwards timed. The graph takes 2 or more images, so batch 1 runs as
     its image twice: it is held to the live forward of that pair by the
@@ -1314,12 +1559,16 @@ def drive_export(what: str, infer, live, batch_u8: np.ndarray,
     else:
         check_export_maps(f"{what}, batch 1", one, alone)
     I8.reset_launches()
+    DF.reset_launches()
     infer(x)
     torch.cuda.synchronize()
-    p1 = dict(I8.LAUNCHES)
+    p1, d1 = dict(I8.LAUNCHES), dict(DF.LAUNCHES)
     if p1["int8_epilogue"] != want_p1:
         raise AssertionError(f"{what}: P1 launched {p1} in one forward, "
                              f"want {want_p1}")
+    if d1 != {"deform_im2col": want_d1, "deform_col2im": 0}:
+        raise AssertionError(f"{what}: D1 launched {d1} in one forward, "
+                             f"want {want_d1} forward launches")
     ms, live_ms = event_median(lambda: infer(x)), event_median(
         lambda: live(x))
     log(f"export ok ({what}): one archive served batch 1 and {N} "
@@ -1328,10 +1577,11 @@ def drive_export(what: str, infer, live, batch_u8: np.ndarray,
         f"{gap1:.3g} at batch 1 (against the live pair); against the live "
         f"batch of 1: max {diff.max().item():.3g}, mean "
         f"{diff.mean().item():.3g}, {share:.4%} of pixels beyond "
-        f"{EXPORT_TOL}; P1 launches a forward {p1}; forward at batch {N} "
+        f"{EXPORT_TOL}; P1 launches a forward {p1}, D1 {d1}; forward at "
+        f"batch {N} "
         f"{ms:.3f} ms against the live {live_ms:.3f} ms (median of 11, CUDA "
         f"events)")
-    return {"ms": ms, "live_ms": live_ms, "p1": p1}
+    return {"ms": ms, "live_ms": live_ms, "p1": p1, "d1": d1}
 
 
 def live_forward(pth: str, mode: str, prob_only: bool):
@@ -2001,7 +2251,8 @@ def dcn_share(model: torch.nn.Module, fn, reps: int = 1) -> dict:
     train step of ``model``) by torch.profiler: the kernels under the
     ``DeformConv`` ranges (``dcn_ranges``) and, in a step, those of the
     backward nodes that share a sequence number with an op inside a range,
-    against every kernel of the window, per call."""
+    against every kernel of the window, per call; and D1's two kernels'
+    time by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2037,7 +2288,13 @@ def dcn_share(model: torch.nn.Module, fn, reps: int = 1) -> dict:
                   if e.name.startswith("autograd::engine::evaluate_function")
                   and getattr(e, "sequence_nr", -1) in seqs]
     bwd = sum(_device_ms(e) for e in bwd_events) / reps
+    d1 = {name: sum(e.time_range.elapsed_us() for e in events
+                    if e.device_type == DeviceType.CUDA
+                    and f"{name}_kernel" in e.name) / 1e3 / reps
+          for name in DF.LAUNCHES}
     return {"device_ms": total, "dcn_fwd_ms": fwd, "dcn_bwd_ms": bwd,
+            "d1_im2col_ms": d1["deform_im2col"],
+            "d1_col2im_ms": d1["deform_col2im"],
             "share": (fwd + bwd) / total if total else float("nan"),
             "ranges": len(ranges) // reps,
             "bwd_nodes": len(bwd_events) // reps}
@@ -2079,17 +2336,112 @@ def family_train(workdir: str, backbone: str, neck: str, batch_size: int,
     return launches, step_ms, totals, moved, trainer, state
 
 
+def _plain_bilinear_sample(flat, n, h, w, y, x):
+    """The plain module's sampling of one tap before D1's kernels: four
+    gathers of the (N·H·W, C) rows ``flat`` at (y, x), each (N, OH, OW),
+    zero outside the image."""
+    y0 = torch.floor(y)
+    x0 = torch.floor(x)
+    wy = (y - y0)[..., None]
+    wx = (x - x0)[..., None]
+    image = (torch.arange(n, device=flat.device) * (h * w))[:, None, None]
+
+    def gather(yy, xx):
+        valid = ((yy >= 0) & (yy < h) & (xx >= 0) & (xx < w))[..., None]
+        yc = yy.clamp(0, h - 1).long()
+        xc = xx.clamp(0, w - 1).long()
+        vals = flat[(image + yc * w + xc).reshape(-1)]
+        return torch.where(valid, vals.reshape(*yy.shape, -1), 0.0)
+
+    v00 = gather(y0, x0)
+    v01 = gather(y0, x0 + 1)
+    v10 = gather(y0 + 1, x0)
+    v11 = gather(y0 + 1, x0 + 1)
+    top = v00 * (1 - wx) + v01 * wx
+    bot = v10 * (1 - wx) + v11 * wx
+    return top * (1 - wy) + bot * wy
+
+
+def plain_deform_forward(self, x):
+    """``DeformConv.forward`` as the port ran it before D1's kernels (PR
+    14's module, line for line): tap by tap, the four gathers of the tap
+    in PyTorch and its product added at once, in the compute dtype; the
+    backward by autograd (an indexed scatter a gather)."""
+    n, c, h, w = x.shape
+    s = self.stride
+    oh, ow = (h + s - 1) // s, (w + s - 1) // s
+    xf = x.float()
+    offsets = self.offset_conv(xf)
+    flat = xf.permute(0, 2, 3, 1).reshape(-1, c)
+    base_y = (torch.arange(oh, device=x.device, dtype=torch.float32)
+              * s)[None, :, None]
+    base_x = (torch.arange(ow, device=x.device, dtype=torch.float32)
+              * s)[None, None, :]
+    dt = self.compute_dtype
+    out = torch.zeros(n * oh * ow, self.weight.shape[0], dtype=dt,
+                      device=x.device)
+    for ky in range(3):
+        for kx in range(3):
+            tap = ky * 3 + kx
+            sy = base_y + (ky - 1) + offsets[:, 2 * tap]
+            sx = base_x + (kx - 1) + offsets[:, 2 * tap + 1]
+            sampled = _plain_bilinear_sample(flat, n, h, w, sy, sx)
+            out = out + sampled.reshape(-1, c).to(dt) @ \
+                self.weight[:, :, ky, kx].t().to(dt)
+    return out.reshape(n, oh, ow, -1).permute(0, 3, 1, 2)
+
+
+class plain_deform:
+    """Within the block, every ``DeformConv`` of ``models`` runs
+    ``plain_deform_forward`` (bound on the instance), not D1's kernels."""
+
+    def __init__(self, *models):
+        from db_text_minimal_tpu_torch.models import DeformConv
+
+        self.convs = [m for model in models for m in model.modules()
+                      if isinstance(m, DeformConv)]
+
+    def __enter__(self):
+        for m in self.convs:
+            m.forward = plain_deform_forward.__get__(m)
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.convs:
+            del m.forward
+
+
+def in_turns(models, fns: dict) -> dict:
+    """Each of ``fns`` (name -> call) timed by ``event_median`` with D1's
+    kernels, then with the plain function swapped into ``models``, TURNS
+    times: {name: {"kernel": [ms...], "plain": [ms...]}}."""
+    out = {name: {"kernel": [], "plain": []} for name in fns}
+    for _ in range(TURNS):
+        for variant in ("kernel", "plain"):
+            for name, fn in fns.items():
+                if variant == "plain":
+                    with plain_deform(*models):
+                        ms = event_median(fn, FAMILY_REPS)
+                else:
+                    ms = event_median(fn, FAMILY_REPS)
+                out[name][variant].append(ms)
+    return out
+
+
 def phase_families(workdir: str) -> dict:
     """Every other detector family the JAX package builds, at full width
     (see the module): served in box mode through the handler given the
     loaded model's forward, bf16 against fp32, timed; card against CPU;
     three bf16 train steps of two; a step at batch 16 timed; DeformConv's
-    share. Returns the K3-K6 and K2 launches of the phase's runs."""
+    share; deformable_resnet18 (fp32) exported and served from its
+    archive.
+    Returns the K3-K6 and K2 launches of the phase's runs."""
     from db_text_minimal_tpu_torch.cli.common import load_model
 
     t_phase = time.perf_counter()
     request = [{"body": b} for b in synthetic_images()]
     batch_u8 = DBTextDetectionHandler(device="cuda").preprocess(request)
+    DF.reset_launches()
     mean = torch.tensor(CAFFE_MEAN, device="cuda")
     x = torch.from_numpy(batch_u8).cuda().float() - mean
     served, timing, shares, pths = {}, {}, {}, {}
@@ -2107,11 +2459,18 @@ def phase_families(workdir: str) -> dict:
 
         handler = DBTextDetectionHandler(forward=forward, device="cuda")
         cc.reset_launches()
+        d1_before = dict(DF.LAUNCHES)
         result = handler.handle(request, mode="boxes")
         torch.cuda.synchronize()
         launches = dict(cc.LAUNCHES)
         check_launches(launches, RECT_PATH, f"families, {name}, box mode")
         check_box_result(result)
+        d1 = {k: DF.LAUNCHES[k] - d1_before[k] for k in DF.LAUNCHES}
+        if d1 != {"deform_im2col": DCN_CONVS.get(backbone, 0),
+                  "deform_col2im": 0}:
+            raise AssertionError(f"{name}: D1 launches {d1} in one served "
+                                 f"forward")
+        launches.update(d1)
         served[name] = launches
         with torch.inference_mode():
             p16 = models[torch.bfloat16](x)
@@ -2121,22 +2480,52 @@ def phase_families(workdir: str) -> dict:
                     and torch.isfinite(p32).all()):
                 raise AssertionError(f"{name}: bf16 maps vs fp32, mean abs "
                                      f"{gap}")
-            timing[name] = {
-                dt: event_median(lambda m=models[d]: m(x), FAMILY_REPS)
-                for dt, d in (("bf16", torch.bfloat16),
-                              ("fp32", torch.float32))}
+            calls = {dt: lambda m=models[d]: m(x)
+                     for dt, d in (("bf16", torch.bfloat16),
+                                   ("fp32", torch.float32))}
+            if backbone in DCN_CONVS:
+                turns = in_turns(list(models.values()), calls)
+                timing[name] = {dt: float(np.median(t["kernel"]))
+                                for dt, t in turns.items()}
+                timing[name].update({f"{dt}_plain": float(np.median(
+                    t["plain"])) for dt, t in turns.items()})
+                timing[name]["turns"] = turns
+            else:
+                timing[name] = {dt: event_median(fn, FAMILY_REPS)
+                                for dt, fn in calls.items()}
         if backbone == "deformable_resnet50":
             with torch.inference_mode():
                 shares["forward"] = dcn_share(
                     models[torch.bfloat16],
                     lambda m=models[torch.bfloat16]: m(x))
+        if backbone == "deformable_resnet18":
+            # fp32: in bf16 the live forward of one image differs from its
+            # forward in a pair (the products' algorithms differ with M)
+            t0 = time.perf_counter()
+            path = export_model(
+                models[torch.float32], os.path.join(workdir, "dr18.pt2"),
+                input_shape=(None, SIZE, SIZE, 3))
+            log(f"families export ({name}, flax mode, fp32): export and "
+                f"save {time.perf_counter() - t0:.2f} s, "
+                f"{os.path.getsize(path)} bytes")
+
+            def live(u8, model=models[torch.float32]):
+                with torch.inference_mode():
+                    return model(u8.float() - mean)
+
+            drive_export(f"{name} flax archive", load_exported(path), live,
+                         batch_u8, 0, want_d1=DCN_CONVS[backbone])
+        plain_note = (f" (the plain DeformConv in turns: bf16 "
+                      f"{timing[name]['bf16_plain']:.3f} ms, fp32 "
+                      f"{timing[name]['fp32_plain']:.3f} ms)"
+                      if backbone in DCN_CONVS else "")
         log(f"families ok: {name} served a batch of {N} in box mode (boxes "
             f"per image {[len(r['boxes']) for r in result]}, launches "
             f"{launches}); bf16 vs fp32 maps mean abs {gap:.3g} (bound "
             f"0.02); forward at batch {N}, {SIZE}x{SIZE}, median of "
             f"{FAMILY_REPS} by CUDA events: bf16 "
             f"{timing[name]['bf16']:.3f} ms, fp32 "
-            f"{timing[name]['fp32']:.3f} ms; "
+            f"{timing[name]['fp32']:.3f} ms{plain_note}; "
             f"{time.perf_counter() - t_family:.1f} s with the .pth and the "
             f"loads")
         del models, handler, p16, p32
@@ -2194,6 +2583,36 @@ def phase_families(workdir: str) -> dict:
                 state.model, lambda: step(state, device_batch, LR))
         del trainer, state
         torch.cuda.empty_cache()
+    # the deformable families' bf16 step at batch 16, D1's kernels against
+    # the plain function, in turns; D1's launches in one step
+    d1_step = {}
+    for backbone in DCN_CONVS:
+        name = f"{backbone}+FPN"
+        _, _, _, _, trainer, state = family_train(
+            workdir, backbone, "FPN", QUALITY_BATCH, 1, 0.1)
+        step = T.build_train_step(trainer.cfg)
+        device_batch = T.to_device(text_batch(SEED, QUALITY_BATCH, SIZE),
+                                   torch.device("cuda"))
+        DF.reset_launches()
+        step(state, device_batch, LR)
+        torch.cuda.synchronize()
+        d1_step[name] = dict(DF.LAUNCHES)
+        want = DCN_CONVS[backbone]
+        if d1_step[name] != {"deform_im2col": want, "deform_col2im": want}:
+            raise AssertionError(f"{name}: D1 launches {d1_step[name]} in "
+                                 f"one train step")
+        turns = in_turns([state.model], {
+            "step": lambda: step(state, device_batch, LR)})["step"]
+        timing[name]["train_bf16_b16"] = float(np.median(turns["kernel"]))
+        timing[name]["train_bf16_b16_plain"] = float(np.median(
+            turns["plain"]))
+        timing[name]["train_turns"] = turns
+        log(f"families train turns: {name}, a bf16 step at batch "
+            f"{QUALITY_BATCH}, median of {FAMILY_REPS} a turn, ms: "
+            f"{json.dumps(turns)}; D1 launches in one step "
+            f"{d1_step[name]}")
+        del trainer, state
+        torch.cuda.empty_cache()
     for what, share in shares.items():
         share = {k: round(v, 4) if isinstance(v, float) else v
                  for k, v in share.items()}
@@ -2202,16 +2621,16 @@ def phase_families(workdir: str) -> dict:
             f"{json.dumps(share)}")
     log(f"families timing: {json.dumps(timing)}")
     log(f"families phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"served": served, "train": train_launches}
+    return {"served": served, "train": train_launches, "d1_step": d1_step}
 
 
 def reset_all_launches() -> None:
-    for module in (cc, D, I8):
+    for module in (cc, D, I8, DF):
         module.reset_launches()
 
 
 def all_launches() -> dict:
-    return {**cc.LAUNCHES, **D.LAUNCHES, **I8.LAUNCHES}
+    return {**cc.LAUNCHES, **D.LAUNCHES, **I8.LAUNCHES, **DF.LAUNCHES}
 
 
 def check_report(what: str, report: dict, rows: tuple) -> None:
@@ -2969,6 +3388,7 @@ def main() -> int:
         poly_rows = phase_poly_kernels()
         phase_drivers()
         db_rows = phase_db_step_kernels()
+        d1_rows = phase_deform_kernels()
         with tempfile.TemporaryDirectory() as workdir:
             launches, pth, preds, flax_ms = phase_serve(workdir)
             rows += phase_served(preds)
@@ -2981,7 +3401,7 @@ def main() -> int:
             poly_launches = phase_polygon(preds)
             del preds
             train_launches = phase_train(workdir)
-            phase_families(workdir)
+            families = phase_families(workdir)
             phase_check(pth)
             phase_check_polygon()
             phase_check_train(workdir)
@@ -3013,7 +3433,16 @@ def main() -> int:
         row["launches_in"] = (f"quant: the int8 handler's box and masks "
                               f"forwards and the static forward's, batch "
                               f"of {N}")
-    rows += poly_rows + db_rows + int8_rows
+    dr50 = "deformable_resnet50+FPN"
+    for row in d1_rows:
+        row["launches"] = families["d1_step"][dr50][row["name"]]
+        row["launches_in"] = (f"families: one bf16 train step of "
+                              f"{dr50} at batch {QUALITY_BATCH}")
+        row["launches_served"] = {
+            name: launches[row["name"]]
+            for name, launches in families["served"].items()
+            if name.startswith("deformable")}
+    rows += poly_rows + db_rows + int8_rows + d1_rows
     for row in rows:
         row["id"] = KERNEL_IDS[row["name"]]
     print(json.dumps({"kernels": rows}))

@@ -4,7 +4,8 @@ Port of ``db_text_minimal_tpu/cli/test.py`` (the reference's
 ``src/test.py``): the detector of ``--model_path`` (a ``.pth``, a port
 checkpoint or a JAX Flax ``.ckpt``) runs on one image through
 ``build_inference_forward`` in the ``--infer_mode`` (flax, folded or int8)
-on ``--device``, CUDA by default; the overlay goes to ``--save_dir``.
+on ``--device``, CUDA by default, or through a forward loaded once and
+passed in (``main(args, forward)``); the overlay goes to ``--save_dir``.
 
 Usage::
 
@@ -19,7 +20,7 @@ import argparse
 import os
 import time
 
-from ..utils import read_img, resolve_device, test_preprocess
+from ..utils import read_img, test_preprocess
 from ..utils.visualize import visualize_heatmap, visualize_polygon
 from .common import add_inference_args, build_inference_forward
 
@@ -30,17 +31,20 @@ def load_args(argv=None):
     return parser.parse_args(argv)
 
 
-def main(args):
-    """``src/test.py:45-67``: the path of the overlay written."""
-    device = resolve_device(args.device)
+def main(args, forward=None):
+    """``src/test.py:45-67``: the path of the overlay written.
+    ``forward`` is a loaded forward as ``build_inference_forward`` returns
+    it, the counterpart of JAX's ``net`` and ``variables``: with it no
+    model is loaded, and ``--model_path``, ``--backbone``,
+    ``--infer_mode`` and ``--device`` are not read."""
+    if forward is None:
+        _, forward = build_inference_forward(
+            args.model_path, backbone=args.backbone,
+            infer_mode=args.infer_mode, device=args.device)
     img_path = args.image_path.replace("file://", "")
     img_fn = img_path.split("/")[-1]
     img_origin, h_origin, w_origin = read_img(img_path)
     tmp_img = test_preprocess(img_origin, pad=False)
-    _, forward = build_inference_forward(args.model_path,
-                                         backbone=args.backbone,
-                                         infer_mode=args.infer_mode,
-                                         device=device)
 
     start = time.time()
     preds = forward(tmp_img).float().cpu().numpy()

@@ -67,12 +67,14 @@ def load_args(argv=None):
 
 def tensorboard_writer(log_dir: str):
     """A ``SummaryWriter`` on ``log_dir``, or None when TensorBoard's
-    writer does not import (JAX ``cli/train.py:70-75``)."""
+    writer does not import or does not open, whatever it raises (JAX
+    ``cli/train.py:70-75``): training goes on without it."""
     try:
         from torch.utils.tensorboard import SummaryWriter
-    except ImportError:
+
+        return SummaryWriter(log_dir)
+    except Exception:
         return None
-    return SummaryWriter(log_dir)
 
 
 def main(args=None):

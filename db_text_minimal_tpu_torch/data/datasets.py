@@ -9,9 +9,10 @@ per-(seed, epoch, index) RNG, the square resize-pad to ``image_size``,
 invalid polygons dropped, the four GT maps, then either the Caffe means
 subtracted in RGB order (float32 NHWC) or the compact layout (uint8 image,
 ``np.packbits`` maps, f16 threshold map) that
-``train.trainer.device_preprocess`` finishes on the device. The JAX
-loader's per-host sharding and the GT overlay ``__main__`` wait for ROADMAP
-queue 1 items 10 and 6.
+``train.trainer.device_preprocess`` finishes on the device. As in JAX,
+``DataLoader`` loads each process's disjoint shard of the global batch,
+and ``python -m db_text_minimal_tpu_torch.data.datasets`` draws the GT
+overlay of one training sample.
 """
 
 from __future__ import annotations

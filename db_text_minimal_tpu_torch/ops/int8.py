@@ -117,7 +117,12 @@ def int8_conv2d(q: torch.Tensor, w_cols: torch.Tensor, k: int, stride: int,
     else:
         cols = q.new_zeros((n * ho * wo, w_cols.shape[1]))
         cols[:, :kk].view(n, ho, wo, k, k, cin).copy_(taps)
-    acc = torch._int_mm(cols, w_cols.t())
+    m = cols.shape[0]
+    # torch._int_mm on CUDA takes more than 16 rows; is_cuda first, so that
+    # a CPU export puts no guard on a symbolic batch
+    if cols.is_cuda and m <= 16:
+        cols = torch.cat([cols, cols.new_zeros((17 - m, cols.shape[1]))])
+    acc = torch._int_mm(cols, w_cols.t())[:m]
     return acc.view(n, ho, wo, w_cols.shape[0])
 
 

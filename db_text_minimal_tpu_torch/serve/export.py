@@ -179,7 +179,7 @@ def load_exported(path: str, device="cuda"):
     ``device``, with the sidecar as ``infer.meta``. A symbolic-batch
     archive serves a batch of 1 as its image twice (MIN_BATCH). The default device is
     CUDA; on a machine without a GPU, ``device="cpu"`` must be passed."""
-    from ..ops import int8  # noqa: F401 (registers dbtext::int8_epilogue)
+    from ..ops import deform, int8  # noqa: F401 (registers the custom ops)
 
     device = resolve_device(device)
     _fp32_convolutions()

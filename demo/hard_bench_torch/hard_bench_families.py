@@ -3,17 +3,23 @@ made as the JAX package's ``demo/hard_bench/metrics_dcn.json`` (DetEval F
 .6537) and ``metrics_fpem.json`` (.7687) were: the committed hard bench
 (``make_synthetic --hard``, seed 7, 1600 train and 400 test images,
 replayed from the committed text-engine trace), then ``quality_bench`` for
-10 epochs at batch 16, lr .005, ``--reduction none``, bf16, of
+10 epochs at batch 16, lr .005, ``--reduction none``, bf16, of the rows
+named by ``--rows`` (the first two by default):
 
-- deformable_resnet18 + FPN, ``--dcn_offset_lr_mult 1.0`` (as the JAX
-  row) -> ``metrics_dcn_bf16.json``;
-- resnet18 + FPEM_FFM -> ``metrics_fpem_bf16.json``.
+- ``metrics_dcn_bf16``: deformable_resnet18 + FPN,
+  ``--dcn_offset_lr_mult 1.0`` (as the JAX row);
+- ``metrics_fpem_bf16``: resnet18 + FPEM_FFM;
+- ``metrics_dcn_lrmult0.1_bf16``: deformable_resnet18 + FPN at
+  ``--dcn_offset_lr_mult 0.1``.
 
-Each step runs as its own process; the reports, the card's name and power
-limit, the versions and each step's wall seconds go to ``--out``; data
-goes to ``--work`` (``tmp/`` by default, which git ignores)::
+Each step runs as its own process; the reports (``<row><tag>.json``), the
+card's name and power limit, the versions and each step's wall seconds go
+to ``--out``; data goes to ``--work`` (``tmp/`` by default, which git
+ignores)::
 
     python demo/hard_bench_torch/hard_bench_families.py --out tmp/families
+    python demo/hard_bench_torch/hard_bench_families.py --out tmp/d1 \
+        --rows metrics_dcn_bf16,metrics_dcn_lrmult0.1_bf16 --tag _d1
 """
 
 from __future__ import annotations
@@ -27,16 +33,26 @@ import time
 
 TRACE = "demo/hard_bench_torch/text_engine_hard_seed7.npz"
 PKG = "db_text_minimal_tpu_torch"
-ROWS = (("metrics_dcn_bf16", ["--backbone", "deformable_resnet18",
-                              "--dcn_offset_lr_mult", "1.0"]),
-        ("metrics_fpem_bf16", ["--neck", "FPEM_FFM"]))
+ROWS = {"metrics_dcn_bf16": ["--backbone", "deformable_resnet18",
+                             "--dcn_offset_lr_mult", "1.0"],
+        "metrics_fpem_bf16": ["--neck", "FPEM_FFM"],
+        "metrics_dcn_lrmult0.1_bf16": ["--backbone", "deformable_resnet18",
+                                       "--dcn_offset_lr_mult", "0.1"]}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--out", required=True)
     parser.add_argument("--work", default="tmp/families_hard")
+    parser.add_argument("--rows", default="metrics_dcn_bf16,"
+                                          "metrics_fpem_bf16")
+    parser.add_argument("--tag", default="",
+                        help="appended to each report's name")
     args = parser.parse_args()
+    rows = args.rows.split(",")
+    unknown = [r for r in rows if r not in ROWS]
+    if unknown:
+        raise SystemExit(f"unknown rows {unknown}; known: {list(ROWS)}")
     os.makedirs(args.out, exist_ok=True)
     hb = os.path.join(args.work, "hb")
     walls = {}
@@ -66,12 +82,13 @@ def main() -> int:
     py = [sys.executable, "-m"]
     run("make_synthetic", py + [f"{PKG}.cli.make_synthetic", hb, "--hard",
                                 "--text_trace", TRACE])
-    for name, flags in ROWS:
+    for row in rows:
+        name = row + args.tag
         run(name, py + [
             f"{PKG}.cli.quality_bench", "--data_dir", hb, "--out",
             os.path.join(args.out, f"{name}.json"), "--epochs", "10",
             "--batch_size", "16", "--lr", "0.005", "--reduction", "none"]
-            + flags)
+            + ROWS[row])
     return 0
 
 

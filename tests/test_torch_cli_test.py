@@ -246,3 +246,26 @@ def test_gt_overlay_main_matches_jax(setup, tmp_path, monkeypatch):
                                   np.unpackbits(plt.shown[1][0], axis=-1))
     assert shown[1][0].sum() > 0
     np.testing.assert_array_equal(shown[2][0], plt.shown[2][0])
+
+
+@pytest.mark.parametrize("mode", ["heatmap", "rect"])
+def test_cli_test_takes_a_loaded_forward(setup, mode, tmp_path,
+                                         monkeypatch):
+    """``main(args, forward)``, the counterpart of JAX's ``main(args, net,
+    variables)``: a forward loaded once gives the overlay that the
+    load-per-call path writes on the same image, pixel for pixel, and no
+    model is loaded."""
+    args = setup["args"] + MODES[mode] + ["--device", "cpu"]
+    ref = ptest.main(ptest.load_args(
+        args + ["--save_dir", str(tmp_path / "load")]))
+    _, forward = ptest.build_inference_forward(setup["ckpt"], device="cpu")
+
+    def refuse(*a, **k):
+        raise AssertionError("main loaded a model though given a forward")
+
+    monkeypatch.setattr(ptest, "build_inference_forward", refuse)
+    for _ in range(2):
+        got = ptest.main(ptest.load_args(
+            args + ["--save_dir", str(tmp_path / "given")]), forward)
+        assert os.path.basename(got) == os.path.basename(ref)
+        np.testing.assert_array_equal(cv2.imread(got), cv2.imread(ref))

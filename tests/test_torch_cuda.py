@@ -1,6 +1,6 @@
-"""The kernels on the card against their plain PyTorch versions: K3-K8
-and P1 (CUDA) and K1, K2 forward and K2 backward (Triton); the int8
-forward on the card against the CPU.
+"""The kernels on the card against their plain PyTorch versions: K3-K8,
+P1 and D1 forward and backward (CUDA) and K1, K2 forward and K2 backward
+(Triton); the int8 forward on the card against the CPU.
 
 Needs an NVIDIA GPU, nvcc and Triton; skipped elsewhere. This file imports no JAX,
 so it runs on the GPU machine, which has none, without the repo's conftest:
@@ -14,6 +14,7 @@ import torch
 
 from db_text_minimal_tpu_torch.ops import cc
 from db_text_minimal_tpu_torch.ops import db_step as D
+from db_text_minimal_tpu_torch.ops import deform as DF
 from db_text_minimal_tpu_torch.ops import int8 as I
 from torch_scenes import K3_SWEEP, SCENES, k3_sweep_mask, rotated_bars
 
@@ -724,8 +725,9 @@ def test_recognizer_train_step_on_the_card_matches_the_cpu(pred, device):
 
 @pytest.mark.parametrize("stride", [1, 2])
 def test_deform_conv_on_the_card_matches_the_cpu(stride, device):
-    """``DeformConv`` (the gather formulation, no hand kernel) forward and
-    backward on the card against the CPU, fp32 with TF32 off, offsets of
+    """``DeformConv`` (D1's kernels) forward and
+    backward on the card against the CPU (D1's plain versions), fp32 with
+    TF32 off, offsets of
     several pixels (many taps outside the map): the output and the
     gradients with respect to the input, the offset branch and the kernel
     each within 1e-5 of its largest (the offset convs' f32 sums differ
@@ -789,3 +791,160 @@ def test_deformable_resnet18_on_the_card_matches_the_cpu(device):
         ref = model(x)
         got = model.to(device)(x.to(device)).cpu()
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+
+
+# ------------------------------------------------------------------ D1 ----
+
+def _deform_inputs(shape, stride, x_dtype, offsets, device, seed=0):
+    """NHWC x (normal) and offsets: zero, or normal of std 3 px (many taps
+    and corners outside the image)."""
+    n, h, w, c = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g).to(x_dtype)
+    oh, ow = DF.out_size(h, stride), DF.out_size(w, stride)
+    off = torch.zeros((n, oh, ow, 18))
+    if offsets == "random":
+        off = torch.randn((n, oh, ow, 18), generator=g) * 3
+    return x.to(device), off.to(device)
+
+
+def _within_bf16_ulp(got, ref):
+    """Every value within one bf16 ulp of the reference's."""
+    got, ref = got.float(), ref.float()
+    return bool(((got - ref).abs() <= ref.abs() * 2.0 ** -7 + 1e-30).all())
+
+
+@pytest.mark.parametrize("offsets", ["random", "zero"])
+@pytest.mark.parametrize("shape", [(2, 37, 41, 12), (3, 9, 10, 5),
+                                   (1, 20, 33, 130), (2, 17, 15, 256)])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_deform_kernels_match_plain_versions(x_dtype, dtype, stride, shape,
+                                             offsets, device):
+    """D1's im2col and col2im against their plain versions at odd sizes:
+    f32 columns within 1e-5 of max |x|, bf16 ones within one bf16 ulp;
+    dx within 1e-5 and doffsets within 1e-4 of their largest (dx is summed
+    by atomics; a bf16 dx may also round to the next ulp)."""
+    x, off = _deform_inputs(shape, stride, x_dtype, offsets, device)
+    DF.reset_launches()
+    cols = DF.deform_im2col(x, off, stride, dtype)
+    ref = DF.deform_im2col_plain(x, off, stride, dtype)
+    assert cols.dtype == dtype and cols.shape == ref.shape
+    if dtype == torch.float32:
+        err = (cols - ref).abs().max().item()
+        assert err <= 1e-5 * x.abs().max().item(), err
+    else:
+        assert _within_bf16_ulp(cols, ref)
+    g = torch.Generator().manual_seed(1)
+    gcols = torch.randn(tuple(cols.shape), generator=g).to(dtype).to(device)
+    dx, doff = DF.deform_col2im(x, off, gcols, stride)
+    dx_p, doff_p = DF.deform_col2im_plain(x, off, gcols, stride)
+    assert dx.dtype == x_dtype and doff.dtype == torch.float32
+    scale = dx_p.float().abs().max().item()
+    slack = (dx_p.float().abs() * 2.0 ** -7 if x_dtype == torch.bfloat16
+             else 0.0)
+    assert ((dx.float() - dx_p.float()).abs()
+            <= 1e-5 * scale + slack).all()
+    err = (doff - doff_p).abs().max().item()
+    assert err <= 1e-4 * doff_p.abs().max().item(), err
+    assert DF.LAUNCHES == {"deform_im2col": 1, "deform_col2im": 1}
+
+
+def test_deform_kernels_on_unaligned_tensors(device):
+    """A tensor 4 bytes off a 16-byte boundary takes the kernels' one
+    channel a lane path: the same results."""
+    shape, stride = (2, 21, 19, 64), 1
+    x, off = _deform_inputs(shape, stride, torch.float32, "random", device)
+    odd = torch.empty(x.numel() + 1, device=device)[1:].view(shape)
+    odd.copy_(x)
+    assert odd.data_ptr() % 16
+    cols = DF.deform_im2col(odd, off, stride, torch.float32)
+    assert torch.equal(cols, DF.deform_im2col(x, off, stride, torch.float32))
+    gcols = torch.randn_like(cols)
+    dx, doff = DF.deform_col2im(odd, off, gcols, stride)
+    dx_p, doff_p = DF.deform_col2im_plain(x, off, gcols, stride)
+    assert (dx - dx_p).abs().max() <= 1e-5 * dx_p.abs().max()
+    assert (doff - doff_p).abs().max() <= 1e-4 * doff_p.abs().max()
+
+
+def test_deform_kernels_survive_non_finite_offsets(device):
+    """NaN, infinite and huge offsets address nothing outside the image
+    (a fault would surface at the synchronise): the columns equal the
+    plain version's, NaN where it is NaN."""
+    x, off = _deform_inputs((2, 9, 10, 8), 1, torch.float32, "zero", device)
+    off[0, 0, 0, :4] = torch.tensor([float("nan"), float("inf"),
+                                     float("-inf"), 1e30])
+    off[1, 2, 3, :2] = torch.tensor([3e9, -3e9])
+    cols = DF.deform_im2col(x, off, 1, torch.float32)
+    dx, doff = DF.deform_col2im(x, off, torch.ones_like(cols), 1)
+    torch.cuda.synchronize()
+    ref = DF.deform_im2col_plain(x, off, 1, torch.float32)
+    assert torch.equal(cols.isnan(), ref.isnan())
+    assert torch.equal(torch.nan_to_num(cols), torch.nan_to_num(ref))
+    assert dx[1].isfinite().all() and doff[1].isfinite().all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deform_conv_on_the_card_launches_d1(dtype, device):
+    """A CUDA tensor through ``DeformConv`` reaches D1's kernels: one
+    im2col launch a forward, one col2im launch a backward, and the
+    three gradients finite."""
+    from db_text_minimal_tpu_torch.models.deform import DeformConv
+
+    g = torch.Generator().manual_seed(3)
+    conv = DeformConv(128, 64, 2)
+    with torch.no_grad():
+        conv.offset_conv.weight.normal_(0, 0.1, generator=g)
+    conv.compute_dtype = dtype
+    conv.to(device)
+    x = torch.randn((2, 128, 40, 40), generator=g).to(device).to(
+        memory_format=torch.channels_last).requires_grad_()
+    DF.reset_launches()
+    out = conv(x)
+    assert out.dtype == dtype and out.shape == (2, 64, 20, 20)
+    assert DF.LAUNCHES == {"deform_im2col": 1, "deform_col2im": 0}
+    out.float().square().sum().backward()
+    assert DF.LAUNCHES == {"deform_im2col": 1, "deform_col2im": 1}
+    for t in (x.grad, conv.weight.grad, conv.offset_conv.weight.grad):
+        assert t.isfinite().all() and t.abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deformable_export_on_the_card_launches_d1(dtype, device, tmp_path):
+    """A flax-mode archive of deformable_resnet18 + FPN (symbolic batch,
+    uint8 input) exported and loaded on the card holds D1 as the custom
+    op ``dbtext::deform_im2col``: it serves batch 1 and 3 with the live
+    forward's maps (at most 1 % of pixels more than 1e-3 apart) and a
+    forward launches D1's forward kernel 6 times."""
+    from db_text_minimal_tpu_torch.models import DBTextModel
+    from db_text_minimal_tpu_torch.serve.export import (export_model,
+                                                        load_exported)
+    from db_text_minimal_tpu_torch.utils import CAFFE_MEAN
+
+    model = DBTextModel(backbone_name="deformable_resnet18",
+                        compute_dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "offset_conv" in name:
+                p.normal_(0, 0.01, generator=g)
+    model.to(device).eval()
+    path = export_model(model, str(tmp_path / "db.pt2"),
+                        input_shape=(None, 128, 128, 3), device=device)
+    infer = load_exported(path, device=device)
+    mean = torch.tensor(CAFFE_MEAN, device=device)
+    for batch in (1, 3):
+        x = torch.randint(0, 256, (batch, 128, 128, 3), generator=g,
+                          dtype=torch.uint8).to(device)
+        DF.reset_launches()
+        got = infer(x)
+        torch.cuda.synchronize()
+        assert DF.LAUNCHES == {"deform_im2col": 6, "deform_col2im": 0}
+        with torch.no_grad():
+            ref = model((x.float() - mean).repeat(2 if batch == 1 else 1,
+                                                  1, 1, 1))[:batch]
+        assert got.shape == ref.shape == (batch, 128, 128, 2)
+        assert got.isfinite().all()
+        assert ((got - ref).abs() > 1e-3).float().mean().item() <= 0.01

@@ -52,9 +52,9 @@ print(len(names))
                    "utils.visualize", "utils.profiling", "cli.test",
                    "cli.webcam", "cli.pretrain_backbone",
                    "train.backbone_pretrain", "train.flax_msgpack",
-                   "parallel"):
+                   "parallel", "ops.deform"):
         assert f"db_text_minimal_tpu_torch.{module}" in names
-    assert int(count) >= 66
+    assert int(count) >= 67
 
 
 def test_port_sources_name_no_jax_import():

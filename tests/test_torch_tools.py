@@ -167,3 +167,24 @@ def test_tensorboard_scalars_match_jax(tmp_path):
             np.testing.assert_allclose(g, r, rtol=1e-5, err_msg=tag)
         elif tag != "TRAIN/HPs/images_per_sec":   # a wall-clock rate
             assert abs(g - r) <= 1e-6, tag
+
+
+def test_tensorboard_writer_that_fails_to_open_gives_none(tmp_path,
+                                                          monkeypatch):
+    """As JAX's ``cli/train.py:70-75``: any exception from
+    ``SummaryWriter(log_dir)`` leaves training without a writer, not
+    stopped; a writer that opens is returned."""
+    import torch.utils.tensorboard as tb
+
+    from db_text_minimal_tpu_torch.cli import train as train_cli
+
+    writer = train_cli.tensorboard_writer(str(tmp_path / "ok"))
+    assert isinstance(writer, tb.SummaryWriter)
+    writer.close()
+
+    class Refuses:
+        def __init__(self, log_dir):
+            raise PermissionError(f"cannot write {log_dir}")
+
+    monkeypatch.setattr(tb, "SummaryWriter", Refuses)
+    assert train_cli.tensorboard_writer(str(tmp_path / "refused")) is None
