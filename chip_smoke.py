@@ -38,12 +38,14 @@ Phases, one output line each (or more), stopping at the first failure:
              six deformable conv shapes at batch 8, 640x640 (80x80 C=128
              at stride 1 and from 160x160 at stride 2; 40x40 C=256 and
              20x20 C=512, each also from stride 2), bf16 and fp32 columns,
-             zero and random offsets (std 3 px, taps outside the map):
-             fp32 columns within 1e-5 of max |x|, bf16 within one bf16
+             zero and random offsets (std 3 and 12 px, taps outside the
+             map), the column gradient laid out as deform_conv's backward
+             hands it over: fp32 columns bit-equal, bf16 within one bf16
              ulp, dx within 1e-5 and doffsets within 1e-4 of their
-             largest. Each shape timed cold against its bound; the rows
-             at 8x80x80x128, bf16, with the whole conv's bound and one
-             F.grid_sample over the 9-tap grid (its backward for the
+             largest. Each case timed cold against its bound, by events
+             and by the profiler's device time; the rows at 8x80x80x128,
+             bf16, std 3 px, with the whole conv's bound and
+             one F.grid_sample over the 9-tap grid (its backward for the
              backward row) as library_ms.
 3. serve   - serve one batch of 8 synthetic 640x480 images through the
              port's handler in box mode, infer_mode "flax": resnet18 + FPN
@@ -1058,43 +1060,48 @@ DEFORM_SHAPES = ((SIZE // 4, 128, 2), (SIZE // 8, 128, 1),
                  (SIZE // 8, 256, 2), (SIZE // 16, 256, 1),
                  (SIZE // 16, 512, 2), (SIZE // 32, 512, 1))
 DEFORM_ROW_SHAPE = (SIZE // 8, 128, 1)    # the rows: 4 of the 13 convs
-DEFORM_OFFSET_STD = 3.0                   # px: many taps leave the map
+# offsets, px: "random" leaves the map at many taps, "wide" at most
+DEFORM_OFFSET_STD = {"zero": 0.0, "random": 3.0, "wide": 12.0}
 
 
 def deform_inputs(h: int, c: int, stride: int, offsets: str):
     """f32 NHWC x (N, h, h, c) (a ReLU's output, as the blocks feed the
-    conv) and f32 offsets: zero (every tap on an integer coordinate, as at
-    init) or normal of DEFORM_OFFSET_STD px, on the card."""
+    conv) and f32 offsets, normal of DEFORM_OFFSET_STD[offsets] px (zero:
+    every tap on an integer coordinate, as at init), on the card."""
     g = torch.Generator().manual_seed(SEED + h + c + stride)
     x = torch.relu(torch.randn((N, h, h, c), generator=g))
     oh = DF.out_size(h, stride)
     off = torch.zeros((N, oh, oh, 18))
-    if offsets == "random":
-        off = torch.randn((N, oh, oh, 18), generator=g) * DEFORM_OFFSET_STD
+    if DEFORM_OFFSET_STD[offsets]:
+        off = torch.randn((N, oh, oh, 18), generator=g) * \
+            DEFORM_OFFSET_STD[offsets]
     return x.cuda(), off.cuda()
 
 
 def check_deform(x, off, stride, dtype, what):
     """D1 forward and backward against the plain halves on the same
-    inputs: f32 columns within 1e-5 of max |x|, bf16 ones within one bf16
-    ulp of the plain value; dx within 1e-5 and doffsets within 1e-4 of
-    each one's largest (atomic order). Returns (cols err, cols tol, dx
-    err, dx tol, doffsets err, doffsets tol) and the column gradient."""
+    inputs: f32 columns bit-equal, bf16 ones within one bf16 ulp of the
+    plain value; dx within 1e-5 and doffsets within 1e-4 of each one's
+    largest (atomic order). Returns (cols err, cols tol, dx err, dx tol,
+    doffsets err, doffsets tol) and the column gradient."""
     cols = DF.deform_im2col(x, off, stride, dtype)
     ref = DF.deform_im2col_plain(x, off, stride, dtype)
     diff = (cols.float() - ref.float()).abs()
     if dtype == torch.float32:
-        tol = 1e-5 * x.abs().max().item()
-        ok = diff.max().item() <= tol
+        tol = 0.0
+        ok = torch.equal(cols, ref)
     else:
         tol = 2.0 ** -7 * ref.float().abs().max().item()
         ok = bool((diff <= ref.float().abs() * 2.0 ** -7).all())
     if not ok:
         raise AssertionError(f"{what}: columns differ by "
                              f"{diff.max().item()}")
+    # laid out as deform_conv's backward hands it over: the (9, P, C) view
+    # of a (P, 9, C) product
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    gcols = torch.randn(tuple(cols.shape), generator=g, device="cuda").to(
-        dtype)
+    nine, p, c = cols.shape
+    gcols = torch.randn((p, nine, c), generator=g, device="cuda").to(
+        dtype).transpose(0, 1)
     dx, doff = DF.deform_col2im(x, off, gcols, stride)
     dx_p, doff_p = DF.deform_col2im_plain(x, off, gcols, stride)
     errs = [diff.max().item(), tol]
@@ -1165,16 +1172,17 @@ def phase_deform_kernels() -> list[dict]:
     """D1 forward (deform_im2col) and backward (deform_col2im) against
     their plain halves on the card at each distinct deformable conv shape
     of deformable_resnet50 (batch 8, 640x640), in both compute dtypes, at
-    zero and at random offsets (check_deform); each shape timed cold
-    (events after the L2 flush) against its bound; the rows at
-    DEFORM_ROW_SHAPE in bf16 with device ms, plain ms, the whole conv's
-    bound and one F.grid_sample call (its backward for the backward row)
-    as the library's time."""
+    zero and at random offsets of std 3 and 12 px (check_deform); each
+    case timed cold (events after the L2 flush, and the profiler's device
+    time) against its bound; the rows at DEFORM_ROW_SHAPE in bf16 at std
+    3 px with device ms, plain ms, the whole conv's bound and one
+    F.grid_sample call (its backward for the backward row) as the
+    library's time."""
     rows, shapes = [], []
     for h, c, stride in DEFORM_SHAPES:
-        for offsets in ("zero", "random"):
+        for offsets in DEFORM_OFFSET_STD:
             x, off = deform_inputs(h, c, stride, offsets)
-            if offsets == "random":
+            if offsets != "zero":
                 ys = (torch.arange(off.shape[1], device="cuda") * stride)[
                     None, :, None, None] + off[..., 0::2]
                 if not ((ys < -1).any() and (ys > h).any()):
@@ -1183,24 +1191,29 @@ def phase_deform_kernels() -> list[dict]:
                 what = (f"D1 {N}x{h}x{h}x{c} stride {stride} {offsets} "
                         f"offsets {str(dtype)[6:]}")
                 errs, gcols = check_deform(x, off, stride, dtype, what)
-                if offsets == "zero":
-                    continue
-                ms_f = timed(lambda: DF.deform_im2col(x, off, stride,
-                                                      dtype), 10)
-                ms_b = timed(lambda: DF.deform_col2im(x, off, gcols,
-                                                      stride), 10)
+
+                def fwd():
+                    return DF.deform_im2col(x, off, stride, dtype)
+
+                def bwd():
+                    return DF.deform_col2im(x, off, gcols, stride)
+
+                ms_f, ms_b = timed(fwd, 10), timed(bwd, 10)
                 cb = 2 if dtype == torch.bfloat16 else 4
                 bf = deform_bytes(h, c, stride, cb, False)
                 bb = deform_bytes(h, c, stride, cb, True)
                 shapes.append({
                     "shape": [N, h, h, c], "stride": stride,
-                    "dtype": str(dtype)[6:], "errs": errs,
+                    "dtype": str(dtype)[6:], "offset_std_px":
+                    DEFORM_OFFSET_STD[offsets], "errs": errs,
                     "im2col_ms": ms_f,
+                    "im2col_device_ms": device_kernels(fwd, 10)[0],
+                    "col2im_device_ms": device_kernels(bwd, 10)[0],
                     "im2col_bound_ms": bf / HBM_BYTES_PER_S * 1e3,
                     "col2im_ms": ms_b,
                     "col2im_bound_ms": bb / HBM_BYTES_PER_S * 1e3})
                 if (h, c, stride) == DEFORM_ROW_SHAPE \
-                        and dtype == torch.bfloat16:
+                        and dtype == torch.bfloat16 and offsets == "random":
                     rows += deform_rows(x, off, stride, dtype, gcols, errs)
                 del gcols
             del x, off
@@ -1208,8 +1221,8 @@ def phase_deform_kernels() -> list[dict]:
     log(f"D1 shapes (cold, ms by CUDA events after the L2 flush; bound = "
         f"bytes / 3.35 TB/s): {json.dumps(shapes)}")
     log(f"D1 kernels ok: forward and backward held to their plain halves "
-        f"at {len(DEFORM_SHAPES)} shapes x 2 dtypes x zero and random "
-        f"offsets")
+        f"at {len(DEFORM_SHAPES)} shapes x 2 dtypes x offsets of std "
+        f"{list(DEFORM_OFFSET_STD.values())} px")
     return rows
 
 

@@ -20,6 +20,7 @@ Usage::
     python -m db_text_minimal_tpu_torch.cli.quality_bench \
         --data_dir tmp/hb --out demo/hard_bench_torch/metrics.json \
         --epochs 10 [--reduction none] [--polygon] [--save_checkpoint CKPT]
+        [--seed 42]
         [--eval_only --checkpoint CKPT [--quant]] [--device cpu]
 """
 
@@ -78,6 +79,10 @@ def load_args(argv=None):
                              "of a run split across processes)")
     parser.add_argument("--pretrained_backbone", type=str, default=None)
     parser.add_argument("--dcn_offset_lr_mult", type=float, default=1.0)
+    parser.add_argument("--seed", type=int, default=42,
+                        help="the trainer's seed (trainer.seed): the "
+                             "weights' init and Python's and numpy's "
+                             "generators")
     parser.add_argument("--checkpoint", type=str, default=None,
                         help="warm start, or the weights of --eval_only")
     parser.add_argument("--eval_only", action="store_true")
@@ -166,6 +171,7 @@ def build_cfg(args):
                              if args.checkpoint else None)},
         "optimizer": {"lr": args.lr, "reduction": args.reduction,
                       "dcn_offset_lr_mult": args.dcn_offset_lr_mult},
+        "trainer": {"seed": args.seed},
         "lrs": ({"mode": "poly", "warmup_iters": 100,
                  "max_iters": args.lrs_max_iters or args.epochs * max(
                      (args.limit_train or 1600) // args.batch_size, 1)}
@@ -355,6 +361,7 @@ def main(args=None):
         "epochs": args.epochs, "batch_size": args.batch_size,
         "lr": args.lr, "lrs": args.lrs,
         "dcn_offset_lr_mult": args.dcn_offset_lr_mult,
+        "seed": args.seed,
     }
     # saved before the final eval, so a failing eval never loses the
     # training; the sidecar records how the checkpoint was trained

@@ -30,9 +30,12 @@
 //   huge or non-finite offsets never address outside x; an invalid corner
 //   is not read at all.
 // deform_col2im (backward): the column gradient g (9, P, C), f32 or bf16,
-//   gives dx, by atomicAdd of g * (corner weight) into an f32 buffer (valid
-//   corners only: with learned offsets any output may sample any input
-//   pixel, so the input gradient is a scatter by nature), and doffsets
+//   at any tap and pixel strides (channels contiguous; deform_conv hands
+//   over the (9, P, C) view of a (P, 9, C) product, so that a warp reads
+//   its pixel's 9 taps as one run of 9C values), gives dx, by atomicAdd of
+//   g * (corner weight) into an f32 buffer (valid corners only: with
+//   learned offsets any output may sample any input pixel, so the input
+//   gradient is a scatter by nature), and doffsets
 //   (N, OH, OW, 18) f32, a sum over C per (pixel, tap) reduced by warp
 //   shuffles and written once: d/dy = sum g (bot - top), d/dx = sum
 //   [g (1-wy) (v01 - v00) + g wy (v11 - v10)], invalid corners read as
@@ -306,7 +309,8 @@ template <typename Tin, typename Tg, int VEC>
 __global__ void __launch_bounds__(THREADS)
     deform_col2im_kernel(const Tin* __restrict__ x,
                          const float* __restrict__ offsets,
-                         const Tg* __restrict__ gcols, float* __restrict__ dx,
+                         const Tg* __restrict__ gcols, long long g_tap,
+                         long long g_px, float* __restrict__ dx,
                          float* __restrict__ doffsets, int pixels, int h,
                          int w, int c, int oh, int ow, int stride) {
   const int lane = threadIdx.x & 31;
@@ -315,8 +319,8 @@ __global__ void __launch_bounds__(THREADS)
     const Pixel px = pixel_at(offsets, p, oh, ow, lane);
     for (int t = 0; t < 9; ++t) {
       float2 sum = col2im_tap<VEC>(x, sample_at(px, t, h, w, stride),
-                                   gcols + ((long long)t * pixels + p) * c,
-                                   dx, c, lane);
+                                   gcols + t * g_tap + p * g_px, dx, c,
+                                   lane);
 #pragma unroll
       for (int m = 16; m > 0; m >>= 1) {
         sum.x += __shfl_xor_sync(0xffffffffu, sum.x, m);
@@ -345,18 +349,20 @@ void launch_im2col(const void* x, const float* offsets, void* cols,
 
 template <typename Tin, typename Tg>
 void launch_col2im(const void* x, const float* offsets, const void* gcols,
-                   float* dx, float* doffsets, int pixels, int h, int w,
-                   int c, int oh, int ow, int stride, int vec,
-                   cudaStream_t stream) {
+                   long long g_tap, long long g_px, float* dx,
+                   float* doffsets, int pixels, int h, int w, int c, int oh,
+                   int ow, int stride, int vec, cudaStream_t stream) {
   const int blocks = grid_for(pixels);
   const Tin* xi = static_cast<const Tin*>(x);
   const Tg* g = static_cast<const Tg*>(gcols);
   if (vec == 4)
     deform_col2im_kernel<Tin, Tg, 4><<<blocks, THREADS, 0, stream>>>(
-        xi, offsets, g, dx, doffsets, pixels, h, w, c, oh, ow, stride);
+        xi, offsets, g, g_tap, g_px, dx, doffsets, pixels, h, w, c, oh, ow,
+        stride);
   else
     deform_col2im_kernel<Tin, Tg, 1><<<blocks, THREADS, 0, stream>>>(
-        xi, offsets, g, dx, doffsets, pixels, h, w, c, oh, ow, stride);
+        xi, offsets, g, g_tap, g_px, dx, doffsets, pixels, h, w, c, oh, ow,
+        stride);
 }
 
 }  // namespace
@@ -389,32 +395,35 @@ int deform_im2col(const void* x, int x_bf16, const float* offsets,
   return (int)cudaGetLastError();
 }
 
-// x and offsets as deform_im2col's; gcols (9, n*oh*ow, c): bf16 when
-// g_bf16, else f32; dx (n, h, w, c) f32, zeroed by the caller; doffsets
-// (n, oh, ow, 18) f32, every element written.
+// x and offsets as deform_im2col's; gcols: the (9, n*oh*ow, c) column
+// gradient at element strides g_tap and g_px (channels contiguous), bf16
+// when g_bf16, else f32; dx (n, h, w, c) f32, zeroed by the caller;
+// doffsets (n, oh, ow, 18) f32, every element written.
 int deform_col2im(const void* x, int x_bf16, const float* offsets,
-                  const void* gcols, int g_bf16, float* dx, float* doffsets,
-                  int n, int h, int w, int c, int oh, int ow, int stride,
-                  int vec, cudaStream_t stream) {
+                  const void* gcols, int g_bf16, long long g_tap,
+                  long long g_px, float* dx, float* doffsets, int n, int h,
+                  int w, int c, int oh, int ow, int stride, int vec,
+                  cudaStream_t stream) {
   const int pixels = n * oh * ow;
   if (pixels == 0) return (int)cudaGetLastError();
   if (x_bf16) {
     if (g_bf16)
       launch_col2im<__nv_bfloat16, __nv_bfloat16>(
-          x, offsets, gcols, dx, doffsets, pixels, h, w, c, oh, ow, stride,
-          vec, stream);
+          x, offsets, gcols, g_tap, g_px, dx, doffsets, pixels, h, w, c, oh,
+          ow, stride, vec, stream);
     else
-      launch_col2im<__nv_bfloat16, float>(x, offsets, gcols, dx, doffsets,
-                                          pixels, h, w, c, oh, ow, stride,
-                                          vec, stream);
+      launch_col2im<__nv_bfloat16, float>(x, offsets, gcols, g_tap, g_px,
+                                          dx, doffsets, pixels, h, w, c, oh,
+                                          ow, stride, vec, stream);
   } else {
     if (g_bf16)
-      launch_col2im<float, __nv_bfloat16>(x, offsets, gcols, dx, doffsets,
-                                          pixels, h, w, c, oh, ow, stride,
-                                          vec, stream);
+      launch_col2im<float, __nv_bfloat16>(x, offsets, gcols, g_tap, g_px,
+                                          dx, doffsets, pixels, h, w, c, oh,
+                                          ow, stride, vec, stream);
     else
-      launch_col2im<float, float>(x, offsets, gcols, dx, doffsets, pixels, h,
-                                  w, c, oh, ow, stride, vec, stream);
+      launch_col2im<float, float>(x, offsets, gcols, g_tap, g_px, dx,
+                                  doffsets, pixels, h, w, c, oh, ow, stride,
+                                  vec, stream);
   }
   return (int)cudaGetLastError();
 }

@@ -19,10 +19,11 @@ its gradient. ``deform_conv`` is the whole conv: the columns, then the 9
 per-tap 1×1 products by ``torch.matmul`` in the compute dtype, summed in
 tap order (``out = out + cols[t] @ W_t``), as the JAX module and XLA
 compute them: one K = 9C product would round the bf16 sum once, and so
-differently than flax. Autograd takes the products back
-(``grad_cols[t] = g @ W_tᵀ``, ``dW_t = cols[t]ᵀ @ g`` in the compute
-dtype), with the columns kept from the forward for ``dW``, not
-recomputed, and then calls ``deform_col2im``.
+differently than flax. The backward of the products gives the column
+gradient as one product ``g @ [W_0ᵀ | … | W_8ᵀ]`` into a (P, 9, C) tensor
+(each element still one dot product over F), which ``deform_col2im``
+reads by its strides, and ``dW_t = cols[t]ᵀ @ g`` in the compute dtype,
+with the columns kept from the forward for ``dW``, not recomputed.
 
 The sampling follows the JAX arithmetic: the coordinate is ``(base + (k -
 1)) + d``, then ``floor``; each corner has its own validity and its index
@@ -71,8 +72,10 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(build_library(os.path.join(CSRC, "deform.cu"),
                                             "libdeform", "cuda"))
             p, i = ctypes.c_void_p, ctypes.c_int
+            q = ctypes.c_longlong
             lib.deform_im2col.argtypes = [p, i, p, p, i] + [i] * 8 + [p]
-            lib.deform_col2im.argtypes = [p, i, p, p, i, p, p] + [i] * 8 + [p]
+            lib.deform_col2im.argtypes = ([p, i, p, p, i, q, q, p, p]
+                                          + [i] * 8 + [p])
             lib.deform_im2col.restype = ctypes.c_int
             lib.deform_col2im.restype = ctypes.c_int
             _LIB = lib
@@ -194,9 +197,11 @@ def _check(x: torch.Tensor, offsets: torch.Tensor, stride: int) -> None:
 
 
 def _vec(c: int, *tensors: torch.Tensor) -> int:
-    """4 channels a lane where C and every pointer allow it, else 1."""
-    return 4 if c % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                   for t in tensors) else 1
+    """4 channels a lane where C, every pointer and every stride allow it,
+    else 1."""
+    return 4 if c % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:-1])
+        for t in tensors) else 1
 
 
 @torch.library.custom_op("dbtext::deform_im2col", mutates_args=())
@@ -246,7 +251,8 @@ def _col2im_cuda(x, offsets, gcols, stride):
     doffsets = torch.empty_like(offsets)
     err = load_library().deform_col2im(
         x.data_ptr(), int(x.dtype == torch.bfloat16), offsets.data_ptr(),
-        gcols.data_ptr(), int(gcols.dtype == torch.bfloat16), dx.data_ptr(),
+        gcols.data_ptr(), int(gcols.dtype == torch.bfloat16),
+        gcols.stride(0), gcols.stride(1), dx.data_ptr(),
         doffsets.data_ptr(), n, h, w, c, oh, ow, stride,
         _vec(c, x, gcols, dx), stream_of(x))
     check_launch(err, "deform_col2im")
@@ -270,7 +276,7 @@ def _im2col_backward(ctx, gcols):
     if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
         return None, None, None, None
     x, offsets = ctx.saved_tensors
-    dx, doffsets = deform_col2im(x, offsets, gcols.contiguous(), ctx.stride)
+    dx, doffsets = deform_col2im(x, offsets, gcols, ctx.stride)
     return dx, doffsets, None, None
 
 
@@ -295,7 +301,8 @@ def deform_col2im(x: torch.Tensor, offsets: torch.Tensor,
                   gcols: torch.Tensor, stride: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """The gradients of ``deform_im2col``'s input and offsets from the
-    columns' gradient ``gcols`` (9, N·OH·OW, C), f32 or bf16: (dx in x's
+    columns' gradient ``gcols`` (9, N·OH·OW, C), f32 or bf16, at any tap
+    and pixel strides (channels contiguous, else it is copied): (dx in x's
     dtype, doffsets f32). Dispatches to the custom op
     ``dbtext::deform_col2im``: its kernel on CUDA tensors (dx summed by
     atomics in f32, so its order varies from run to run), its plain version
@@ -308,8 +315,9 @@ def deform_col2im(x: torch.Tensor, offsets: torch.Tensor,
         raise TypeError(f"gcols must be f32 or bf16 (9, {n * oh * ow}, {c}), "
                         f"got {gcols.dtype} {tuple(gcols.shape)}")
     on_cuda(x, offsets, gcols)
-    return torch.ops.dbtext.deform_col2im(x, offsets, gcols.contiguous(),
-                                          stride)
+    if gcols.stride(2) != 1:
+        gcols = gcols.contiguous()
+    return torch.ops.dbtext.deform_col2im(x, offsets, gcols, stride)
 
 
 # --------------------------------------------------------- the conv ----
@@ -320,6 +328,37 @@ def _taps(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return weight.permute(2, 3, 1, 0).reshape(9, c, f).to(dtype)
 
 
+def _tap_sum(cols: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """The 9 per-tap products summed in tap order: (P, F)."""
+    out = cols[0] @ taps[0]
+    for t in range(1, 9):
+        out = out + cols[t] @ taps[t]
+    return out
+
+
+class _TapProducts(torch.autograd.Function):
+    """``_tap_sum`` whose backward gives the column gradient as one
+    product into a (P, 9, C) tensor, handed on as its (9, P, C) view: no
+    stack of 9 per-tap gradients."""
+
+    @staticmethod
+    def forward(ctx, cols, taps):
+        ctx.save_for_backward(cols, taps)
+        return _tap_sum(cols, taps)
+
+    @staticmethod
+    def backward(ctx, g):
+        cols, taps = ctx.saved_tensors
+        nine, c, f = taps.shape
+        gcols = dtaps = None
+        if ctx.needs_input_grad[0]:
+            wcat = taps.permute(2, 0, 1).reshape(f, nine * c)
+            gcols = (g @ wcat).view(-1, nine, c).transpose(0, 1)
+        if ctx.needs_input_grad[1]:
+            dtaps = torch.stack([cols[t].t() @ g for t in range(nine)])
+        return gcols, dtaps
+
+
 def deform_conv(x: torch.Tensor, offsets: torch.Tensor,
                 weight: torch.Tensor, stride: int,
                 dtype: torch.dtype) -> torch.Tensor:
@@ -328,12 +367,14 @@ def deform_conv(x: torch.Tensor, offsets: torch.Tensor,
     (N, OH, OW, F) in ``dtype``, differentiable in all three. The sampling
     runs in f32 by ``deform_im2col`` and ``deform_col2im`` (kernels on CUDA
     tensors, plain versions on CPU ones); the per-tap products in
-    ``dtype``, summed in tap order."""
-    cols = deform_im2col(x.contiguous(), offsets.contiguous(), stride,
-                         dtype).unbind(0)
-    taps = _taps(weight, dtype).unbind(0)
-    out = cols[0] @ taps[0]
-    for t in range(1, 9):
-        out = out + cols[t] @ taps[t]
+    ``dtype``, summed in tap order (``_TapProducts`` when a gradient is
+    wanted; an exported graph holds the plain sum)."""
+    cols = deform_im2col(x.contiguous(), offsets.contiguous(), stride, dtype)
+    taps = _taps(weight, dtype)
+    if torch.is_grad_enabled() and (cols.requires_grad
+                                    or taps.requires_grad):
+        out = _TapProducts.apply(cols, taps)
+    else:
+        out = _tap_sum(cols, taps)
     n, oh, ow, _ = offsets.shape
     return out.reshape(n, oh, ow, -1)

@@ -12,14 +12,20 @@ named by ``--rows`` (the first two by default):
 - ``metrics_dcn_lrmult0.1_bf16``: deformable_resnet18 + FPN at
   ``--dcn_offset_lr_mult 0.1``.
 
-Each step runs as its own process; the reports (``<row><tag>.json``), the
-card's name and power limit, the versions and each step's wall seconds go
-to ``--out``; data goes to ``--work`` (``tmp/`` by default, which git
-ignores)::
+Each row runs at each trainer seed of ``--seeds`` (42 by default, the
+report ``<row><tag>.json``; another seed's ``<row>_seed<S><tag>.json``).
+With ``--offsets`` each deformable row also saves its checkpoint and
+``dcn_offsets.py`` writes its learned offsets' quantiles and D1's times
+on one test batch (``<report>_offsets.json``). Each step runs as its own
+process; the reports, the card's name and power limit, the versions and
+each step's wall seconds go to ``--out``; data and checkpoints go to
+``--work`` (``tmp/`` by default, which git ignores)::
 
     python demo/hard_bench_torch/hard_bench_families.py --out tmp/families
     python demo/hard_bench_torch/hard_bench_families.py --out tmp/d1 \
         --rows metrics_dcn_bf16,metrics_dcn_lrmult0.1_bf16 --tag _d1
+    python demo/hard_bench_torch/hard_bench_families.py --out tmp/seeds \
+        --rows metrics_dcn_bf16 --seeds 1,2,3 --offsets
 """
 
 from __future__ import annotations
@@ -48,6 +54,10 @@ def main() -> int:
                                           "metrics_fpem_bf16")
     parser.add_argument("--tag", default="",
                         help="appended to each report's name")
+    parser.add_argument("--seeds", default="42",
+                        help="the trainer seeds each row runs at")
+    parser.add_argument("--offsets", action="store_true",
+                        help="the deformable rows' offset statistics")
     args = parser.parse_args()
     rows = args.rows.split(",")
     unknown = [r for r in rows if r not in ROWS]
@@ -83,12 +93,23 @@ def main() -> int:
     run("make_synthetic", py + [f"{PKG}.cli.make_synthetic", hb, "--hard",
                                 "--text_trace", TRACE])
     for row in rows:
-        name = row + args.tag
-        run(name, py + [
-            f"{PKG}.cli.quality_bench", "--data_dir", hb, "--out",
-            os.path.join(args.out, f"{name}.json"), "--epochs", "10",
-            "--batch_size", "16", "--lr", "0.005", "--reduction", "none"]
-            + ROWS[row])
+        for seed in args.seeds.split(","):
+            name = row + ("" if seed == "42" else f"_seed{seed}") + args.tag
+            ckpt = os.path.join(args.work, f"{name}.ckpt")
+            dcn = "deformable" in " ".join(ROWS[row])
+            run(name, py + [
+                f"{PKG}.cli.quality_bench", "--data_dir", hb, "--out",
+                os.path.join(args.out, f"{name}.json"), "--epochs", "10",
+                "--batch_size", "16", "--lr", "0.005", "--reduction",
+                "none", "--seed", seed] + ROWS[row]
+                + (["--save_checkpoint", ckpt]
+                   if args.offsets and dcn else []))
+            if args.offsets and dcn:
+                run(f"{name}_offsets", [
+                    sys.executable,
+                    os.path.join(os.path.dirname(__file__), "dcn_offsets.py"),
+                    "--checkpoint", ckpt, "--data_dir", hb, "--out",
+                    os.path.join(args.out, f"{name}_offsets.json")])
     return 0
 
 

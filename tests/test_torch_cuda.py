@@ -948,3 +948,75 @@ def test_deformable_export_on_the_card_launches_d1(dtype, device, tmp_path):
         assert got.shape == ref.shape == (batch, 128, 128, 2)
         assert got.isfinite().all()
         assert ((got - ref).abs() > 1e-3).float().mean().item() <= 0.01
+
+
+def _deform_wide_inputs(shape, stride, std, seed):
+    """x (normal) and offsets of std ``std`` px, on the CPU."""
+    n, h, w, _ = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g)
+    off = torch.randn((n, DF.out_size(h, stride), DF.out_size(w, stride),
+                       18), generator=g) * std
+    return x, off
+
+
+def _check_col2im(x, off, gcols, stride):
+    """dx within 1e-5 and doffsets within 1e-4 of their largest, against
+    the plain version (where it is finite)."""
+    dx, doff = DF.deform_col2im(x, off, gcols, stride)
+    dx_p, doff_p = DF.deform_col2im_plain(x, off, gcols, stride)
+    assert torch.isfinite(dx).all() and torch.isfinite(dx_p).all()
+    assert (dx - dx_p).abs().max() <= 1e-5 * dx_p.abs().max()
+    assert torch.equal(doff.isfinite(), doff_p.isfinite())
+    fin = doff_p.isfinite()
+    assert (doff[fin] - doff_p[fin]).abs().max() <= \
+        1e-4 * doff_p[fin].abs().max()
+
+
+@pytest.mark.parametrize("std", [1.0, 3.0, 12.0])
+@pytest.mark.parametrize("shape", [(2, 37, 53, 40), (1, 37, 53, 6),
+                                   (1, 19, 22, 132)])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deform_kernels_match_plain_versions_at_wide_offsets(
+        dtype, stride, shape, std, device):
+    """D1's kernels at sizes that are no multiple of 8, C no multiple of
+    32 (and C % 4 != 0: one channel a lane), batch 1, offsets of std 1, 3
+    and 12 px (most samples far from their pixel, many outside the
+    image): the columns bit-equal to the plain version's (f32, and bf16
+    rounded from the same f32), dx and doffsets within 1e-5 and 1e-4 of
+    their largest. The column gradient comes as deform_conv's backward
+    hands it over, a (9, P, C) view of a (P, 9, C) tensor."""
+    x, off = _deform_wide_inputs(shape, stride, std, seed=int(std))
+    x, off = x.to(device), off.to(device)
+    DF.reset_launches()
+    cols = DF.deform_im2col(x, off, stride, dtype)
+    assert torch.equal(cols, DF.deform_im2col_plain(x, off, stride, dtype))
+    n, oh, ow, _ = off.shape
+    g = torch.Generator().manual_seed(1)
+    gcols = torch.randn((n * oh * ow, 9, shape[3]), generator=g).to(
+        dtype).to(device).transpose(0, 1)
+    _check_col2im(x, off, gcols, stride)
+    assert DF.LAUNCHES == {"deform_im2col": 1, "deform_col2im": 1}
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_deform_kernels_survive_scattered_non_finite_offsets(stride,
+                                                             device):
+    """NaN, infinite and huge offsets among ordinary ones, in several
+    places: the columns equal the plain version's (NaN where it is NaN),
+    dx and the finite doffsets within the tolerances."""
+    x, off = _deform_wide_inputs((2, 37, 53, 40), stride, 3.0, seed=5)
+    g = torch.Generator().manual_seed(6)
+    pick = torch.rand(off.shape, generator=g)
+    bad = torch.tensor([float("nan"), float("inf"), float("-inf"), 1e30,
+                        -3e9])
+    which = torch.randint(0, len(bad), off.shape, generator=g)
+    off = torch.where(pick < 0.03, bad[which], off)
+    x, off = x.to(device), off.to(device)
+    cols = DF.deform_im2col(x, off, stride, torch.float32)
+    torch.cuda.synchronize()
+    ref = DF.deform_im2col_plain(x, off, stride, torch.float32)
+    assert torch.equal(cols.isnan(), ref.isnan())
+    assert torch.equal(torch.nan_to_num(cols), torch.nan_to_num(ref))
+    _check_col2im(x, off, torch.randn_like(cols), stride)

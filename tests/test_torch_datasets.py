@@ -525,3 +525,11 @@ def test_train_cli_resumes_the_state_bit_for_bit(tmp_path, monkeypatch):
         for name, value in slots.items():
             assert torch.equal(opt_got["state"][index][name], value)
 
+
+def test_quality_bench_seed_sets_the_trainer_seed(tmp_path):
+    """``--seed`` reaches ``trainer.seed`` (42 without it, as before)."""
+    argv = ["--data_dir", str(tmp_path), "--out", str(tmp_path / "m.json"),
+            "--device", "cpu"]
+    assert qb.build_cfg(qb.load_args(argv)).trainer.seed == 42
+    assert qb.build_cfg(qb.load_args(argv + ["--seed", "7"])).trainer.seed \
+        == 7

@@ -243,3 +243,65 @@ def test_deform_conv_function_bf16_matches_flax():
     assert got <= 1e-4 and got * 10 <= gap, (got, gap)
     out.float().sum().backward()
     assert tw.grad.dtype == torch.float32 and tw.grad.abs().max() > 0
+
+
+def test_col2im_plain_takes_the_column_gradient_by_its_strides():
+    """The (9, P, C) view of a (P, 9, C) tensor gives what its contiguous
+    copy gives, bit for bit."""
+    x, off = _inputs(2, 8, "random")
+    p = off.shape[0] * off.shape[1] * off.shape[2]
+    g = torch.from_numpy(np.random.RandomState(7).randn(p, 9, 8).astype(
+        np.float32)).transpose(0, 1)
+    xt, ot = torch.from_numpy(x), torch.from_numpy(off)
+    assert not g.is_contiguous()
+    got = DF.deform_col2im(xt, ot, g, 2)
+    want = DF.deform_col2im(xt, ot, g.contiguous(), 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deform_conv_hands_col2im_one_product_not_a_stack(dtype,
+                                                          monkeypatch):
+    """The column gradient reaches ``deform_col2im`` as the (9, P, C) view
+    of one (P, 9, C) product g @ [W_0ᵀ | … | W_8ᵀ], no stacked copy, and
+    the conv's three gradients equal those of the per-tap products taken
+    back by autograd (the 9 tap gradients stacked), within a bf16 ulp."""
+    c, f, stride = 8, 6, 1
+    x, off = _inputs(stride, c, "random")
+    w = torch.from_numpy((np.random.RandomState(8).randn(f, c, 3, 3) * 0.3)
+                         .astype(np.float32))
+    g = torch.from_numpy(np.random.RandomState(9).randn(
+        2, off.shape[1], off.shape[2], f).astype(np.float32))
+    seen = []
+    col2im = DF.deform_col2im
+
+    def spy(xx, oo, gcols, s):
+        seen.append((gcols.shape, gcols.stride(), gcols.is_contiguous()))
+        return col2im(xx, oo, gcols, s)
+
+    monkeypatch.setattr(DF, "deform_col2im", spy)
+
+    def grads(conv):
+        tx = torch.from_numpy(x).requires_grad_()
+        to = torch.from_numpy(off).requires_grad_()
+        tw = w.clone().requires_grad_()
+        (conv(tx, to, tw).float() * g).sum().backward()
+        return tx.grad, to.grad, tw.grad
+
+    def stacked(tx, to, tw):
+        cols = DF.deform_im2col(tx, to, stride, dtype).unbind(0)
+        taps = DF._taps(tw, dtype).unbind(0)
+        out = cols[0] @ taps[0]
+        for t in range(1, 9):
+            out = out + cols[t] @ taps[t]
+        return out.reshape(*off.shape[:3], -1)
+
+    got = grads(lambda *a: DF.deform_conv(*a, stride, dtype))
+    p = off.shape[0] * off.shape[1] * off.shape[2]
+    assert seen == [((9, p, c), (c, 9 * c, 1), False)]
+    want = grads(stacked)
+    assert seen[1][2]    # the stack is contiguous
+    for a, b in zip(got, want):
+        tol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-6 * scale + tol * scale
