@@ -7,13 +7,20 @@ Run from the repository root on a machine with a CUDA GPU::
 
 Phases, one output line each (or more), stopping at the first failure:
 
-1. build   - compile the CUDA kernels (csrc/cc.cu, csrc/int8_epilogue.cu
-             and csrc/deform.cu, nvcc sm_90a), the host geometry library
-             and the Triton kernels K1 and K2 (ops/db_step_triton.py), in
-             parallel.
+1. build   - compile the CUDA kernels (csrc/cc.cu, csrc/int8_epilogue.cu,
+             csrc/int8_conv.cu and csrc/deform.cu, nvcc sm_90a), the host
+             geometry library and the Triton kernels K1 and K2
+             (ops/db_step_triton.py), in parallel.
 2. kernels - hold P1 (csrc/int8_epilogue.cu) bit for bit against its plain
              version in both forms (f32 at the FPN output conv's 8x160x160
-             x256, int8 at a layer-2 conv1's 8x80x80x128), and each kernel
+             x256, int8 at a layer-2 conv1's 8x80x80x128); the int8 conv
+             (csrc/int8_conv.cu: implicit GEMM on the tensor cores with P1's
+             epilogue in registers) bit for bit against its plain version
+             (im2col, torch._int_mm, P1's plain version) at each of the int8
+             forward's 11 distinct conv shapes at batch 8 in each form the
+             forward uses, each timed cold beside the route it replaces
+             (im2col, torch._int_mm, P1's kernel) and its bound (int8
+             operations at 1,979 TOP/s against the bytes); and each kernel
              K3-K7 against its plain PyTorch version on the
              card at the serving path's shapes (8 prob maps of 640x640,
              K = 1000 slots; K7's stats in its bbox_stats and poly_stats
@@ -59,30 +66,35 @@ Phases, one output line each (or more), stopping at the first failure:
              labels, K6, K5 and K7's stats (poly_stats form) on their slot
              maps, each held to its plain version.
 4. quant   - the BN-folded and int8 serving path on the same .pth and
-             batch: the handler in "folded" mode (its default; P1 must not
-             launch) and in "int8" mode (dynamic scales, 17 int8 convs: P1
-             launches 17 times a forward), and make_folded_forward with
-             static scales calibrated on the batch (7 int8-form and 10
-             f32-form launches), each in box mode (K3-K6 must launch); the
-             same stage timing as the serve phase for each, and each
-             forward profiled. Then the quant checks (see check).
+             batch: the handler in "folded" mode (its default; no int8
+             kernel may launch) and in "int8" mode (dynamic scales, 17 int8
+             convs: the int8 conv's kernel launches 17 times a forward, P1's
+             never), and make_folded_forward with static scales calibrated
+             on the batch (7 int8-form and 10 f32-form launches), each in
+             box mode (K3-K6 must launch); the same stage timing as the
+             serve phase for each, and each forward profiled (top kernels;
+             the int8 forwards call no torch._int_mm and no unfold, and
+             launch no P1 kernel). Then the quant checks (see check).
 5. export  - serve/export on the same .pth at 640x640: the flax (bf16),
              folded and int8 archives (.pt2; symbolic batch, uint8 input,
              the folded and int8 ones prob-only), each loaded back, batch 1
              and 8 from one archive held to the live forward of its mode
              (at most 1 % of pixels more than 1e-3 apart) and timed
-             against it; the int8 archive launches P1 17 times a forward
-             through the custom op dbtext::int8_epilogue. The folded and
+             against it; the int8 archive launches the int8 conv's kernel
+             17 times a forward through the custom op dbtext::int8_conv. The
+             folded and
              int8 archives then serve the batch through the handler in
              box mode (K3-K6 launch; the folded archive's boxes within
              2.5 px of the live folded handler's) and refuse masks mode.
 6. prune   - cli.prune on the .pth at the JAX p50 keeps (.5/.75/.5; the
              JAX report's widths and param ratio .5048) and at odd keeps
-             (.3, 1, 130: int8 GEMMs with K and N padded to multiples of
-             8); each loaded with its sidecar by load_model and
+             (.3, 1, 130: int8 convs with K and N padded to multiples of
+             8, channels no multiples of 16); each loaded with its sidecar
+             by load_model and
              build_inference_forward, folded fp32 held to the model fp32
              (the full model's gaps beside), served folded and int8 in box
-             mode (K3-K6, P1 once per int8 conv); 3 bf16 train steps of the
+             mode (K3-K6, the int8 conv's kernel once per int8 conv); 3
+             bf16 train steps of the
              p50 model at batch 4 (K2 each step; checkpoints with the
              sidecar); the odd-keep int8 archive held as in export; the
              folded forward and handle() at batch 8, full against p50.
@@ -149,7 +161,7 @@ Phases, one output line each (or more), stopping at the first failure:
              quality_bench.main for one epoch, in bf16, with
              --reduction none --polygon --save_checkpoint (K2 in every
              step; K3-K7 in the eval's four rows), then --eval_only
-             --quant on the checkpoint (P1 in the int8 convs, K3-K6 in the
+             --quant on the checkpoint (the int8 conv's kernel, K3-K6 in the
              device row); both reports must have the JAX report's keys and
              finite P/R/F. Logs the generation, train and eval times, each
              row's postprocess time, the loader's share of the epoch and
@@ -167,14 +179,15 @@ Phases, one output line each (or more), stopping at the first failure:
              for 2 epochs (base), rec_bench --mode rec and --mode e2e on
              the quality set with its quality.ckpt detector (reports with
              JAX's keys, total > 0), and cli.ocr.main on a test image with
-             --infer_mode int8 (P1 must launch), its detect and crop stages
+             --infer_mode int8 (the int8 conv must launch), its detect and
+             crop stages
              timed, and its recognize stage on the image's GT crops.
 12. tools  - the JAX package's Flax checkpoint reader on the card: the
              committed fixture (tests/make_flax_fixture.py, a narrow
              detector and its JAX maps) in fp32, max abs 1e-4 from the JAX
              maps; cli/test at full width on the serve phase's .pth in the
-             heatmap, polygon and rect modes, flax and int8 (P1 17 times a
-             run), card against CPU; cli/webcam with recognition on a
+             heatmap, polygon and rect modes, flax and int8 (the int8 conv
+             17 times a run), card against CPU; cli/webcam with recognition on a
              6-frame mp4v video of the 640x480 images, frames/s;
              pretrain_backbone_dense at full resnet18 width (8 steps of 64
              crops), its .pth loaded by a Trainer, ms a step; cli.train
@@ -235,6 +248,7 @@ N, SIZE, K = 8, 640, 1000
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit rate
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
+INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor-core rate
 SRC = "db_text_minimal_tpu_torch/csrc/cc.cu"
 JAX_CC = "db_text_minimal_tpu/ops/pallas/cc.py"
 TRITON_SRC = "db_text_minimal_tpu_torch/ops/db_step_triton.py"
@@ -243,8 +257,8 @@ INT8_SRC = "db_text_minimal_tpu_torch/csrc/int8_epilogue.cu"
 DEFORM_SRC = "db_text_minimal_tpu_torch/csrc/deform.cu"
 JAX_DEFORM = "db_text_minimal_tpu/models/deform.py"
 PROBE = "benchmarks/int8_conv_probe.py"
-# P1 launches per forward: every int8 conv ends in it (17 with skip=());
-# with static scales 7 of them write the next conv's int8 input
+# the int8 conv's launches per forward: one an int8 conv (17 with
+# skip=()); with static scales 7 of them write the next conv's int8 input
 INT8_CONVS, FUSED_PLACES = 17, 7
 # the export phase: an archive serves batch 1 and batch N; the JAX export
 # tests' rule (tests/test_cli_serve.py:215-217): at most 1 % of pixels more
@@ -506,23 +520,26 @@ def build_triton() -> None:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         jobs = [pool.submit(cc.load_library),
                 pool.submit(I8.load_library),
+                pool.submit(I8.load_library, "int8_conv"),
                 pool.submit(DF.load_library),
                 pool.submit(geometry.load_library),
                 pool.submit(build_triton)]
         for job in jobs:
             job.result()
-    log(f"build ok: cc.cu, int8_epilogue.cu and deform.cu (nvcc sm_90a), "
+    log(f"build ok: cc.cu, int8_epilogue.cu, int8_conv.cu and deform.cu "
+        f"(nvcc sm_90a), "
         f"geometry.cpp "
         f"(g++) and K1, K2 forward and backward (Triton) in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -620,10 +637,17 @@ def k4_row(name: str, labels: torch.Tensor) -> dict:
     err = max((keyed - keyed_p).abs().max().item(),
               (valid_root ^ valid_root_p).sum().item())
     px = labels.numel()
-    return kernel_row(name, "cuda", SRC, f"{JAX_CC}:114", err, 0,
-                      lambda: cc.compact_slots(labels, K),
-                      lambda: cc.compact_slots_plain(labels, K),
-                      px * (4 + 4) + labels.shape[0] * K, px * 4)
+    row = kernel_row(name, "cuda", SRC, f"{JAX_CC}:114", err, 0,
+                     lambda: cc.compact_slots(labels, K),
+                     lambda: cc.compact_slots_plain(labels, K),
+                     px * (4 + 4) + labels.shape[0] * K, px * 4)
+    # one PyTorch call ranks the labels as K4 does (over the batch, not
+    # per image, and without the slot cap)
+    row["library_ms"] = timed(
+        lambda: torch.unique(labels, sorted=True, return_inverse=True), 5)
+    row["note"] = ("library_ms: torch.unique(labels, sorted=True, "
+                   "return_inverse=True)")
+    return row
 
 
 def k6_row(name, mask, keyed, bg_keyed, prob):
@@ -1052,6 +1076,121 @@ def phase_int8_kernels() -> list[dict]:
     return rows
 
 
+# the int8 forward's convs at batch N, 640x640, skip=(): (input size, Cin,
+# Cout, k, stride, convs of the shape, forms); the int8 form where the
+# static forward feeds the next conv (each block's conv1, the FPN output
+# conv)
+INT8_CONV_SHAPES = (
+    (SIZE // 4, 64, 128, 3, 2, 1, ("f32", "int8")),     # layer2_0 conv1
+    (SIZE // 8, 128, 128, 3, 1, 3, ("f32", "int8")),    # layer2's other 3x3
+    (SIZE // 4, 64, 128, 1, 2, 1, ("f32",)),            # layer2_0 downsample
+    (SIZE // 8, 128, 256, 3, 2, 1, ("f32", "int8")),    # layer3_0 conv1
+    (SIZE // 16, 256, 256, 3, 1, 3, ("f32", "int8")),
+    (SIZE // 8, 128, 256, 1, 2, 1, ("f32",)),
+    (SIZE // 16, 256, 512, 3, 2, 1, ("f32", "int8")),   # layer4_0 conv1
+    (SIZE // 32, 512, 512, 3, 1, 3, ("f32", "int8")),
+    (SIZE // 16, 256, 512, 1, 2, 1, ("f32",)),
+    (SIZE // 4, 256, 256, 3, 1, 1, ("f32", "int8")),    # the FPN output conv
+    (SIZE // 4, 256, 128, 3, 1, 1, ("f32",)))           # the head's conv1
+INT8_CONV_SRC = "db_text_minimal_tpu_torch/csrc/int8_conv.cu"
+JAX_INT8_CONV = "db_text_minimal_tpu/models/quant_infer.py:238"
+
+
+def int8_conv_inputs(h: int, cin: int, cout: int, k: int):
+    """A conv's int8 input (N, h, h, cin) and (kh, kw, cin) weights drawn
+    from a seed, scales and biases as a calibrated conv has them, on the
+    card."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + h + cin + k)
+    dev = torch.device("cuda")
+    q = torch.randint(-127, 128, (N, h, h, cin), generator=g,
+                      dtype=torch.int8, device=dev)
+    w = torch.randint(-127, 128, (cout, k * k * cin), generator=g,
+                      dtype=torch.int8, device=dev)
+    scale = torch.rand(cout, generator=g, device=dev) * 2e-6
+    bias = torch.randn(cout, generator=g, device=dev) * 0.5
+    return q, w, scale, bias
+
+
+def phase_int8_conv_kernels() -> list[dict]:
+    """The int8 conv (csrc/int8_conv.cu) at every distinct conv shape of
+    the int8 forward at batch N, in each form the forward uses (the int8
+    form at an output scale that clips), bit for bit against its plain
+    version on the card (im2col, torch._int_mm, P1's plain version); each
+    timed cold by events and device time, beside the route it replaces
+    (im2col, torch._int_mm, P1's kernel) and its bound: int8 operations at
+    the card's int8 tensor-core rate against each input read once and the
+    output written once."""
+    rows = []
+    for h, cin, cout, k, stride, convs, forms in INT8_CONV_SHAPES:
+        pad = k // 2
+        q, w, scale, bias = int8_conv_inputs(h, cin, cout, k)
+        ho = (h + 2 * pad - k) // stride + 1
+        m, kk = N * ho * ho, k * k * cin
+        for form in forms:
+            osc = (torch.tensor(0.005, device=q.device) if form == "int8"
+                   else None)
+            args = (q, w, k, stride, pad, scale, bias, True, osc)
+
+            def kernel():
+                return I8.int8_conv(*args)
+
+            def plain():
+                return I8.int8_conv_plain(*args)
+
+            def replaced():
+                acc = I8.int8_conv2d(q, w, k, stride, pad)
+                return I8.int8_epilogue(acc.view(-1, cout), scale, bias,
+                                        True, osc)
+
+            name = f"int8_conv_{form}_{h}x{cin}to{cout}_k{k}s{stride}"
+            out, ref = kernel(), plain()
+            if (out.dtype != ref.dtype or not torch.equal(out, ref)
+                    or not torch.equal(replaced().view(out.shape), ref)):
+                raise AssertionError(f"{name}: the kernel differs from its "
+                                     f"plain version")
+            if form == "int8" and out.max().item() != 127:
+                raise AssertionError(f"{name}: the int8 form never clips")
+            ms = timed(kernel, 20)
+            dev_ms, by_name, _ = device_kernels(kernel, 10)
+            plain_ms = timed(plain, 3)
+            replaced_ms = timed(replaced, 10)
+            replaced_dev_ms, replaced_split, _ = device_kernels(replaced, 5)
+            moved = (q.numel() + w.numel() + out.numel() * out.element_size()
+                     + cout * 8)
+            bound_ms, bound_by = bound(moved, 2 * m * cout * kk,
+                                       INT8_OPS_PER_S)
+            log(f"kernel {name} (x{convs} a forward): bit-equal to its plain "
+                f"version, {ms:.4f} ms, on the card {dev_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}, "
+                f"{100 * bound_ms / dev_ms:.1f} % of it), "
+                f"{2 * m * cout * kk / dev_ms / 1e9:.1f} TOP/s; the route "
+                f"it replaces {replaced_ms:.4f} ms, on the card "
+                f"{replaced_dev_ms:.4f} ms "
+                f"{json.dumps({short_name(n)[:40]: round(v, 4) for n, v in replaced_split.items()})}; "
+                f"plain {plain_ms:.3f} ms")
+            rows.append({
+                "name": name, "route": "cuda", "source": INT8_CONV_SRC,
+                "replaces": f"{PROBE}:103", "launches": 0,
+                "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+                "device_split": {short_name(n): v
+                                 for n, v in by_name.items()},
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "replaced_ms": replaced_ms,
+                "replaced_device_ms": replaced_dev_ms,
+                "shape": [N, h, h, cin, cout, k, stride], "form": form,
+                "convs": convs,
+                "note": (f"_epi_kernel with the XLA conv it follows "
+                         f"({JAX_INT8_CONV}); replaced_ms: im2col, "
+                         f"torch._int_mm and P1's kernel; library_ms "
+                         f"null: no PyTorch call computes an int8 conv")})
+            del out, ref
+        del q, w
+    log(f"int8 conv kernels ok: bit-equal to the plain route at the "
+        f"{len(INT8_CONV_SHAPES)} conv shapes of the int8 forward")
+    return rows
+
+
 # D1: every distinct shape of deformable_resnet50's deformable convs at
 # batch N, 640x640: (input size, channels, stride); the conv's output
 # channels equal its input's (planes). deformable_resnet18's six are the
@@ -1367,39 +1506,57 @@ def phase_serve(workdir: str) -> tuple[dict, str, torch.Tensor, float]:
     return launches, pth, preds, timing["bf16"]["forward"][1]
 
 
-def p1_bytes(fn) -> int:
-    """The bytes P1 must move in one call of ``fn``: each launch's int32
-    accumulators read once, its output written once, its scales and biases
-    read once (the wrapper is wrapped for this call only; its launches
-    still count)."""
-    moved = []
-    real = Q.int8_epilogue
+def int8_conv_work(fn) -> tuple[int, int]:
+    """The bytes and int8 operations the int8 convs must move and do in
+    one call of ``fn``: each conv's int8 input and weights read once, its
+    output written once, its scales and biases read once, and 2 M N K
+    operations (the op is wrapped for this call only; its launches still
+    count)."""
+    work = []
+    real = Q.int8_conv
 
-    def counting(acc, scale, bias, relu, out_scale=None):
-        out = real(acc, scale, bias, relu, out_scale)
-        moved.append(acc.numel() * 4 + out.numel() * out.element_size()
-                     + scale.numel() * 8)
+    def counting(q, w_cols, k, stride, pad, scale, bias, relu,
+                 out_scale=None):
+        out = real(q, w_cols, k, stride, pad, scale, bias, relu, out_scale)
+        kk = k * k * q.shape[3]
+        work.append((q.numel() + out.shape[-1] * kk
+                     + out.numel() * out.element_size() + scale.numel() * 8,
+                     2 * out.numel() * kk))
         return out
 
-    Q.int8_epilogue = counting
+    Q.int8_conv = counting
     try:
         fn()
     finally:
-        Q.int8_epilogue = real
-    return sum(moved)
+        Q.int8_conv = real
+    return sum(w[0] for w in work), sum(w[1] for w in work)
+
+
+def host_ops(fn) -> set:
+    """The names of the ATen operators ``fn`` calls (torch.profiler's CPU
+    events): the int8 forward must call no ``aten::_int_mm`` and no
+    ``aten::unfold`` (im2col)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()}
 
 
 def phase_quant(pth: str, flax_forward_ms: float) -> dict:
     """The folded modes on the served .pth and batch. The handler in
-    "folded" mode (the default; P1 never launches) and in "int8" mode
-    (dynamic scales, skip=(): 17 launches a forward, all in the f32 form),
-    each in box mode and in masks mode; then make_folded_forward with
-    static scales calibrated on the batch's first 2 images (7 int8-form and
-    10 f32-form launches), in box mode through the handler's postprocess.
-    The counts are set to 0 before each forward and read after it; the P1
-    rows' launches are their sum. Then box mode's stage timing for each."""
+    "folded" mode (the default; the int8 conv never launches) and in "int8"
+    mode (dynamic scales, skip=(): the int8 conv's kernel 17 times a
+    forward, all in the f32 form), each in box mode and in masks mode; then
+    make_folded_forward with static scales calibrated on the batch's first
+    2 images (7 int8-form and 10 f32-form launches), in box mode through
+    the handler's postprocess. P1's own kernel never launches. The counts
+    are set to 0 before each forward and read after it; the int8 conv rows'
+    launches are their sum. Then box mode's stage timing for each, and each
+    forward profiled: no ``torch._int_mm`` and no im2col remain."""
     request = [{"body": b} for b in synthetic_images()]
-    p1_total = {k: 0 for k in I8.LAUNCHES}
+    i8_total = {k: 0 for k in I8.LAUNCHES}
     maps = {}
     handlers = {}
 
@@ -1408,24 +1565,24 @@ def phase_quant(pth: str, flax_forward_ms: float) -> dict:
         I8.reset_launches()
         out = fn()
         torch.cuda.synchronize()
-        p1 = dict(I8.LAUNCHES)
-        if (p1["int8_epilogue_int8"], p1["int8_epilogue_f32"]) != (
-                want_int8, want_f32):
-            raise AssertionError(f"{what}: P1 launches {p1}, want "
+        i8 = dict(I8.LAUNCHES)
+        if (i8["int8_conv_int8"], i8["int8_conv_f32"],
+                i8["int8_epilogue"]) != (want_int8, want_f32, 0):
+            raise AssertionError(f"{what}: int8 launches {i8}, want "
                                  f"{want_int8} int8-form and {want_f32} "
-                                 f"f32-form")
+                                 f"f32-form int8 convs, no P1")
         if rect_path:
             check_launches(dict(cc.LAUNCHES), RECT_PATH, what)
-        for k in p1_total:
-            p1_total[k] += p1[k]
-        return out, p1
+        for k in i8_total:
+            i8_total[k] += i8[k]
+        return out, i8
 
     for mode in ("folded", "int8"):
         handler = DBTextDetectionHandler(pth, infer_mode=mode)
         handler.initialize()
         handlers[mode] = handler
         f32_form = INT8_CONVS if mode == "int8" else 0
-        result, p1 = drive(f"quant serve {mode}, box mode",
+        result, i8 = drive(f"quant serve {mode}, box mode",
                            lambda: handler.handle(request, mode="boxes"),
                            0, f32_form, True)
         check_box_result(result)
@@ -1434,8 +1591,8 @@ def phase_quant(pth: str, flax_forward_ms: float) -> dict:
             lambda: handler.inference(handler.preprocess(request)), 0,
             f32_form, False)
         log(f"quant serve ok ({mode}): batch of {N} in box mode, boxes per "
-            f"image {[len(r['boxes']) for r in result]}, P1 launches a "
-            f"forward {p1}")
+            f"image {[len(r['boxes']) for r in result]}, int8 launches a "
+            f"forward {i8}")
 
     # the served batch as the folded forwards take it: f32 on the card,
     # the Caffe means subtracted (the handlers' own step)
@@ -1444,7 +1601,7 @@ def phase_quant(pth: str, flax_forward_ms: float) -> dict:
     static = make_folded_forward(load_state_dict(pth, fuse_head=True),
                                  quantize=True, calibration=[batch[:2]])
     int8_handler = handlers["int8"]
-    result, p1 = drive(
+    result, i8 = drive(
         "quant static, box mode",
         lambda: int8_handler.postprocess_boxes(static(batch, prob_only=True)),
         FUSED_PLACES, INT8_CONVS - FUSED_PLACES, True)
@@ -1453,8 +1610,8 @@ def phase_quant(pth: str, flax_forward_ms: float) -> dict:
                                    lambda: static(batch), FUSED_PLACES,
                                    INT8_CONVS - FUSED_PLACES, False)
     log(f"quant static ok: calibrated on 2 images, {INT8_CONVS} int8 convs, "
-        f"boxes per image {[len(r['boxes']) for r in result]}, P1 launches "
-        f"a forward {p1}")
+        f"boxes per image {[len(r['boxes']) for r in result]}, int8 "
+        f"launches a forward {i8}")
 
     for mode, handler in handlers.items():
         quartiles = serve_stages(handler, request)
@@ -1482,16 +1639,25 @@ def phase_quant(pth: str, flax_forward_ms: float) -> dict:
         q25, med, q75 = (float(q) for q in np.percentile(fwd_ms,
                                                          [25, 50, 75]))
         busy_ms, by_name, _ = device_kernels(fn, 3)
-        p1_ms = sum(v for k, v in by_name.items() if "epilogue<" in k)
-        p1_bound, _ = bound(p1_bytes(fn), 0)
+        conv_ms = sum(v for k, v in by_name.items()
+                      if "int8_conv_kernel" in k)
+        conv_bound, conv_by = bound(*int8_conv_work(fn), INT8_OPS_PER_S)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        if mode != "folded":
+            left = {"aten::_int_mm", "aten::unfold"} & host_ops(fn)
+            if left or any("epilogue<" in k for k in by_name):
+                raise AssertionError(f"quant profile ({mode}): the old "
+                                     f"route is still there: {left}, "
+                                     f"{sorted(by_name)}")
         log(f"quant profile ({mode}): prob-only forward ms [q25, median, "
             f"q75] [{q25:.3f}, {med:.3f}, {q75:.3f}]; the card busy "
             f"{busy_ms:.3f} ms a forward (idle "
-            f"{100 * (1 - busy_ms / med):.2f} %), P1 {p1_ms:.4f} ms of it "
-            f"against its bound {p1_bound:.4f} ms; top kernels ms "
+            f"{100 * (1 - busy_ms / med):.2f} %), the int8 convs "
+            f"{conv_ms:.4f} ms of it against their bound {conv_bound:.4f} "
+            f"ms ({conv_by}); no _int_mm, unfold or P1 kernel; top "
+            f"kernels ms "
             f"{json.dumps({k[:60]: round(v, 4) for k, v in top})}")
-    return {"launches": p1_total, "maps": maps, "static": static,
+    return {"launches": i8_total, "maps": maps, "static": static,
             "batch": batch}
 
 
@@ -1547,10 +1713,10 @@ def check_same_boxes(what: str, got: list, ref: list) -> float:
 
 
 def drive_export(what: str, infer, live, batch_u8: np.ndarray,
-                 want_p1: int, int8: bool = False, want_d1: int = 0) -> dict:
+                 want_i8: int, int8: bool = False, want_d1: int = 0) -> dict:
     """One archive: batch 1 and batch N from it against the live forward
-    of the same mode on the same uint8 batch, P1's and D1's launches in one
-    forward of N (counts set to 0 just before, read just after), and both
+    of the same mode on the same uint8 batch, the int8 conv's and D1's
+    launches in one forward of N (counts set to 0 just before, read just after), and both
     forwards timed. The graph takes 2 or more images, so batch 1 runs as
     its image twice: it is held to the live forward of that pair by the
     export rule, and to the live batch of 1, whose convs take other
@@ -1575,10 +1741,10 @@ def drive_export(what: str, infer, live, batch_u8: np.ndarray,
     DF.reset_launches()
     infer(x)
     torch.cuda.synchronize()
-    p1, d1 = dict(I8.LAUNCHES), dict(DF.LAUNCHES)
-    if p1["int8_epilogue"] != want_p1:
-        raise AssertionError(f"{what}: P1 launched {p1} in one forward, "
-                             f"want {want_p1}")
+    i8, d1 = dict(I8.LAUNCHES), dict(DF.LAUNCHES)
+    if i8["int8_conv"] != want_i8 or i8["int8_epilogue"]:
+        raise AssertionError(f"{what}: the int8 kernels launched {i8} in "
+                             f"one forward, want {want_i8} int8 convs")
     if d1 != {"deform_im2col": want_d1, "deform_col2im": 0}:
         raise AssertionError(f"{what}: D1 launched {d1} in one forward, "
                              f"want {want_d1} forward launches")
@@ -1590,11 +1756,11 @@ def drive_export(what: str, infer, live, batch_u8: np.ndarray,
         f"{gap1:.3g} at batch 1 (against the live pair); against the live "
         f"batch of 1: max {diff.max().item():.3g}, mean "
         f"{diff.mean().item():.3g}, {share:.4%} of pixels beyond "
-        f"{EXPORT_TOL}; P1 launches a forward {p1}, D1 {d1}; forward at "
+        f"{EXPORT_TOL}; int8 launches a forward {i8}, D1 {d1}; forward at "
         f"batch {N} "
         f"{ms:.3f} ms against the live {live_ms:.3f} ms (median of 11, CUDA "
         f"events)")
-    return {"ms": ms, "live_ms": live_ms, "p1": p1, "d1": d1}
+    return {"ms": ms, "live_ms": live_ms, "i8": i8, "d1": d1}
 
 
 def live_forward(pth: str, mode: str, prob_only: bool):
@@ -1621,10 +1787,11 @@ def phase_export(workdir: str, pth: str) -> dict:
     both maps), folded and int8 (prob-only) archives with a symbolic batch
     and uint8 input, each loaded back, held to the live forward of its
     mode at batch 1 and N (EXPORT_TOL, EXPORT_SHARE) and timed; the int8
-    archive launches P1 INT8_CONVS times a forward through the custom op.
-    Then the folded and int8 archives serve the batch through the handler
-    in box mode: K3-K6 launch, P1 INT8_CONVS times for int8, and the
-    folded archive's boxes are the live folded handler's within 2.5 px."""
+    archive launches the int8 conv's kernel INT8_CONVS times a forward
+    through the custom op. Then the folded and int8 archives serve the
+    batch through the handler in box mode: K3-K6 launch, the int8 conv
+    INT8_CONVS times for int8, and the folded archive's boxes are the live
+    folded handler's within 2.5 px."""
     request = [{"body": b} for b in synthetic_images()]
     live_handler = DBTextDetectionHandler(pth, infer_mode="folded")
     batch_u8 = live_handler.preprocess(request)
@@ -1659,9 +1826,10 @@ def phase_export(workdir: str, pth: str) -> dict:
         launches = {**cc.LAUNCHES, **I8.LAUNCHES}
         check_launches(launches, RECT_PATH, f"the {mode} archive served")
         want = INT8_CONVS if mode == "int8" else 0
-        if launches["int8_epilogue"] != want:
-            raise AssertionError(f"the {mode} archive served: P1 launches "
-                                 f"{launches['int8_epilogue']}, want {want}")
+        if launches["int8_conv"] != want or launches["int8_epilogue"]:
+            raise AssertionError(f"the {mode} archive served: int8 conv "
+                                 f"launches {launches['int8_conv']}, want "
+                                 f"{want}")
         check_box_result(result)
         gap = (check_same_boxes(f"the {mode} archive served", result, live)
                if mode == "folded" else None)
@@ -1703,8 +1871,8 @@ def phase_prune(workdir: str, pth: str) -> dict:
     int8 GEMMs padded); each loaded by ``load_model`` and
     ``build_inference_forward`` with its sidecar: the folded forward in fp32
     against the pruned model in fp32 (atol 2e-4, JAX test_prune.py:186) on
-    2 images; the folded and int8 handlers in box mode (K3-K6, and P1 once
-    per int8 conv); 3 bf16 train steps of the p50 model at batch 4 (K2
+    2 images; the folded and int8 handlers in box mode (K3-K6, and the int8
+    conv's kernel once per int8 conv); 3 bf16 train steps of the p50 model at batch 4 (K2
     each step) whose checkpoints carry the sidecar; the odd-keep int8
     archive held as in the export phase; the folded forward at batch N,
     full against p50, timed in turns."""
@@ -1751,9 +1919,9 @@ def phase_prune(workdir: str, pth: str) -> dict:
             launches = {**cc.LAUNCHES, **I8.LAUNCHES}
             check_launches(launches, RECT_PATH, f"{name} {mode} served")
             want = n_int8 if mode == "int8" else 0
-            if launches["int8_epilogue"] != want:
-                raise AssertionError(f"{name} {mode}: P1 launches "
-                                     f"{launches['int8_epilogue']}, want "
+            if launches["int8_conv"] != want or launches["int8_epilogue"]:
+                raise AssertionError(f"{name} {mode}: int8 conv launches "
+                                     f"{launches['int8_conv']}, want "
                                      f"{want}")
             check_box_result(result)
             handlers[(name, mode)] = handler
@@ -2671,7 +2839,7 @@ def phase_quality(workdir: str) -> dict:
     batch 16, in bf16, with
     ``--reduction none --polygon --save_checkpoint`` (K2 in every step,
     K3-K7 in the eval's rows), then ``--eval_only --quant`` on that
-    checkpoint (P1 in every int8 conv, K3-K6 in the device row). The
+    checkpoint (the int8 conv's kernel, K3-K6 in the device row). The
     counts are set to 0 before each run and read after it. Also the host
     ms of a training sample (decode, augment, labels) on one thread."""
     import cv2
@@ -2724,9 +2892,9 @@ def phase_quality(workdir: str) -> dict:
         os.path.join(workdir, "quality_int8.json")]))
     torch.cuda.synchronize()
     launches_q = all_launches()
-    if launches_q["int8_epilogue"] == 0:
-        raise AssertionError(f"quality --quant: P1 never launched "
-                             f"{launches_q}")
+    if launches_q["int8_conv"] == 0:
+        raise AssertionError(f"quality --quant: the int8 conv never "
+                             f"launched {launches_q}")
     check_launches(launches_q, RECT_PATH, "quality bench --quant")
     check_report("quality bench --quant", report_q, ("host", "device"))
     if not report_q["config"]["train_config"]["reduction"] == "none":
@@ -2792,7 +2960,7 @@ def rec_model(stages, device: str):
 def phase_ocr(workdir: str) -> dict:
     """The recognizer and the OCR path at full width, on the quality
     phase's hard set and its ``quality.ckpt`` detector (see the module).
-    Returns P1's launches in cli.ocr's int8 run."""
+    Returns the int8 kernels' launches in cli.ocr's int8 run."""
     import cv2
 
     from db_text_minimal_tpu_torch.cli import ocr, rec_bench, train_rec
@@ -2922,10 +3090,10 @@ def phase_ocr(workdir: str) -> dict:
         reset_all_launches()
         results = ocr.main(opt)
         torch.cuda.synchronize()
-        p1 = dict(I8.LAUNCHES)
-        if sum(p1.values()) == 0:
-            raise AssertionError(f"ocr --infer_mode int8: P1 never "
-                                 f"launched {p1}")
+        i8 = dict(I8.LAUNCHES)
+        if i8["int8_conv"] == 0:
+            raise AssertionError(f"ocr --infer_mode int8: the int8 conv "
+                                 f"never launched {i8}")
         # the stages, timed apart: the int8 detector's forward, the host
         # postprocess and warps, and the per-crop recognition, this on the
         # image's GT words (the one-epoch detector may find none)
@@ -2962,13 +3130,13 @@ def phase_ocr(workdir: str) -> dict:
         f"{REC_STEPS - 2}): {json.dumps(train_ms)}; train_rec 2 epochs "
         f"{train_rec_s:.2f} s; rec_bench rec {rec_s:.2f} s "
         f"{json.dumps(rec)}; e2e {e2e_s:.2f} s {json.dumps(e2e)}; cli.ocr "
-        f"int8 on {os.path.basename(image)}: {len(results)} words, P1 "
-        f"launches {json.dumps(p1)}; stages (median of 3 after one): "
+        f"int8 on {os.path.basename(image)}: {len(results)} words, int8 "
+        f"launches {json.dumps(i8)}; stages (median of 3 after one): "
         f"detect {detect_ms:.2f} ms, crop {crop_ms:.2f} ms, recognize "
         f"{recognize_ms:.2f} ms a crop, one forward each ({len(gt_crops)} "
         f"GT crops of the image); the phase took "
         f"{time.perf_counter() - t_phase:.2f} s")
-    return p1
+    return i8
 
 
 def fixture_input() -> np.ndarray:
@@ -2995,8 +3163,8 @@ def tools_cli_test(workdir: str, pth: str) -> tuple[dict, dict]:
     phase's .pth), in the three output modes, flax and int8, on the card
     and on the CPU; what each overlay is drawn from (``utils/visualize``'s
     ``overlay`` and ``filter_zero_boxes``, recorded) held card against CPU.
-    Returns the rows and P1's launches in the card's int8 runs, by
-    form."""
+    Returns the rows and the int8 kernels' launches in the card's int8
+    runs, by form."""
     import cv2
 
     from db_text_minimal_tpu_torch.cli import test as test_cli
@@ -3006,7 +3174,7 @@ def tools_cli_test(workdir: str, pth: str) -> tuple[dict, dict]:
     with open(image, "wb") as f:
         f.write(synthetic_images()[0])
     real = visualize.overlay, visualize.filter_zero_boxes
-    rows, p1 = {}, dict.fromkeys(I8.LAUNCHES, 0)
+    rows, i8 = {}, dict.fromkeys(I8.LAUNCHES, 0)
     try:
         for infer in ("flax", "int8"):
             for mode, flags in CLI_TEST_MODES:
@@ -3027,14 +3195,14 @@ def tools_cli_test(workdir: str, pth: str) -> tuple[dict, dict]:
                     if cv2.imread(path).shape != (480, 640, 3):
                         raise AssertionError(f"cli/test: {path}")
                     if device == "cuda":
-                        launches = I8.LAUNCHES["int8_epilogue"]
+                        launches = I8.LAUNCHES["int8_conv"]
                         if launches != (INT8_CONVS if infer == "int8"
                                         else 0):
                             raise AssertionError(
-                                f"cli/test {infer} {mode}: P1 launched "
-                                f"{launches} times")
+                                f"cli/test {infer} {mode}: the int8 conv "
+                                f"launched {launches} times")
                         for key, value in I8.LAUNCHES.items():
-                            p1[key] += value
+                            i8[key] += value
                     layer = np.asarray(drawn.calls[0][0][1][0][0])
                     found = boxes.calls[0][1][0] if boxes.calls else []
                     seen[device] = (wall, layer, found)
@@ -3043,7 +3211,7 @@ def tools_cli_test(workdir: str, pth: str) -> tuple[dict, dict]:
                     mode)
     finally:
         visualize.overlay, visualize.filter_zero_boxes = real
-    return rows, p1
+    return rows, i8
 
 
 def tools_compare(what: str, card, cpu, mode: str) -> dict:
@@ -3300,8 +3468,8 @@ def tools_dump(workdir: str) -> dict:
 def phase_tools(workdir: str, pth: str) -> dict:
     """The tools phase (see the module): the Flax fixture, cli/test,
     cli/webcam, backbone pretraining, the distributed cli.train and
-    --dump_eval_dir. Returns P1's launches in cli/test's int8 runs and K2's
-    in the distributed cli.train."""
+    --dump_eval_dir. Returns the int8 kernels' launches in cli/test's int8
+    runs and K2's in the distributed cli.train."""
     t_phase = time.perf_counter()
     model = load_model(FLAX_FIXTURE, dtype=torch.float32)
     with torch.inference_mode():
@@ -3310,7 +3478,7 @@ def phase_tools(workdir: str, pth: str) -> dict:
     if not flax_gap <= FAMILY_TOL:
         raise AssertionError(f"Flax fixture: max abs {flax_gap} from the "
                              f"JAX maps")
-    cli_rows, p1 = tools_cli_test(workdir, pth)
+    cli_rows, i8 = tools_cli_test(workdir, pth)
     webcam_row = tools_webcam(workdir, pth)
     pretrain_row = tools_pretrain(workdir)
     train_row, k2 = tools_train(workdir)
@@ -3319,13 +3487,13 @@ def phase_tools(workdir: str, pth: str) -> dict:
         f"msgpack, narrow widths from its sidecar) in fp32 on the card, "
         f"max abs {flax_gap:.3g} from the JAX maps (tolerance "
         f"{FAMILY_TOL}); cli/test card against CPU, ms a call "
-        f"(weights loaded each call) {json.dumps(cli_rows)}, P1 launches "
-        f"{p1}; webcam {json.dumps(webcam_row)}; pretrain_backbone_dense "
+        f"(weights loaded each call) {json.dumps(cli_rows)}, int8 launches "
+        f"{i8}; webcam {json.dumps(webcam_row)}; pretrain_backbone_dense "
         f"{json.dumps(pretrain_row)}; cli.train DDP "
         f"{json.dumps(train_row)}, K2 {json.dumps(k2)}; --dump_eval_dir "
         f"{json.dumps(dump_row)}; the phase took "
         f"{time.perf_counter() - t_phase:.2f} s")
-    return {"p1": p1, "k2": k2}
+    return {"i8": i8, "k2": k2}
 
 
 def check_prf(what, loss, precision, recall, hmean) -> None:
@@ -3395,6 +3563,7 @@ def main() -> int:
     try:
         phase_build()
         int8_rows = phase_int8_kernels()
+        conv_rows = phase_int8_conv_kernels()
         rows = phase_kernels()
         phase_k3_sweep()
         phase_k5_sweep()
@@ -3407,7 +3576,7 @@ def main() -> int:
             rows += phase_served(preds)
             quant = phase_quant(pth, flax_ms)
             phase_check_quant(preds, quant)
-            p1_launches = quant["launches"]
+            i8_launches = quant["launches"]
             del quant
             phase_export(workdir, pth)
             phase_prune(workdir, pth)
@@ -3419,7 +3588,7 @@ def main() -> int:
             phase_check_polygon()
             phase_check_train(workdir)
             phase_quality(workdir)
-            ocr_p1 = phase_ocr(workdir)
+            ocr_i8 = phase_ocr(workdir)
             tools = phase_tools(workdir, pth)
     except Exception:
         traceback.print_exc()
@@ -3439,13 +3608,15 @@ def main() -> int:
         row["launches"] = train_launches[row["name"]]
         row["launches_ddp"] = tools["k2"].get(row["name"], 0)
         row["launches_in"] = f"train: {TRAIN_STEPS} steps"
-    for row in int8_rows:
-        row["launches"] = p1_launches[row["name"]]
-        row["launches_ocr"] = ocr_p1[row["name"]]
-        row["launches_cli_test"] = tools["p1"][row["name"]]
+    for row in int8_rows + conv_rows:
+        counter = (f"int8_conv_{row['form']}" if "form" in row
+                   else row["name"])
+        row["launches"] = i8_launches[counter]
+        row["launches_ocr"] = ocr_i8[counter]
+        row["launches_cli_test"] = tools["i8"][counter]
         row["launches_in"] = (f"quant: the int8 handler's box and masks "
                               f"forwards and the static forward's, batch "
-                              f"of {N}")
+                              f"of {N} (the kernel's count in this form)")
     dr50 = "deformable_resnet50+FPN"
     for row in d1_rows:
         row["launches"] = families["d1_step"][dr50][row["name"]]
@@ -3455,9 +3626,10 @@ def main() -> int:
             name: launches[row["name"]]
             for name, launches in families["served"].items()
             if name.startswith("deformable")}
-    rows += poly_rows + db_rows + int8_rows + d1_rows
+    rows += poly_rows + db_rows + int8_rows + conv_rows + d1_rows
     for row in rows:
-        row["id"] = KERNEL_IDS[row["name"]]
+        row["id"] = ("P1 conv" if row["name"].startswith("int8_conv")
+                     else KERNEL_IDS[row["name"]])
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

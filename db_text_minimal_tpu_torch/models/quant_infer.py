@@ -9,15 +9,17 @@ calibrated scales (``calibrate_activation_scales``) or dynamic abs-max ones.
 The other convs and the deconvs run in the compute dtype: bf16 on the card,
 f32 on the CPU, as the JAX package's ``_compute_dtype`` chooses.
 
-An int8 conv is ``ops.int8.int8_conv2d`` (im2col, ``torch._int_mm``) into
-int32 (K and N zero-padded to multiples of 8 where a pruned width leaves
-them otherwise), then the P1 kernel ``ops.int8.int8_epilogue``: the f32
-``relu?(acc * sx*eff + bias)`` the JAX forward computes at
-``quant_infer.py:243``, or, where an int8 conv feeds the next int8 conv
-directly after relu and that conv has a static scale (conv1 -> conv2 of
-each block in layers 2-4, the FPN output conv -> the head's conv1), the
-next conv's int8 input at once. Both forms give the bits of the unfused
-chain; ``fuse=False`` runs the unfused one.
+An int8 conv is one call of ``ops.int8.int8_conv``, the custom op
+``dbtext::int8_conv``: on the card a tensor-core implicit-GEMM kernel with
+P1's epilogue in its register tail, on the CPU im2col and
+``torch._int_mm`` into int32 then P1's plain version (K and N zero-padded
+to multiples of 8 where a pruned width leaves them otherwise). It gives
+the f32 ``relu?(acc * sx*eff + bias)`` the JAX forward computes at
+``quant_infer.py:238-243``, or, where an int8 conv feeds the next int8
+conv directly after relu and that conv has a static scale (conv1 -> conv2
+of each block in layers 2-4, the FPN output conv -> the head's conv1),
+the next conv's int8 input at once. Both forms give the bits of the
+unfused chain; ``fuse=False`` runs the unfused one.
 
 Activations are NHWC tensors as in the JAX package; the float convs see
 them as channels-last NCHW views. The folded tree mirrors the JAX tree
@@ -37,8 +39,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.int8 import (dynamic_scale, int8_conv2d, int8_epilogue,
-                        pad_cols, quantize_per_tensor)
+from ..ops.int8 import (dynamic_scale, int8_conv, pad_cols,
+                        quantize_per_tensor)
 from .layers import (max_pool_3x3_s2, resize_bilinear_align_corners,
                      resize_nearest)
 
@@ -207,10 +209,10 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 def _fconv(x, node, run: _Run, stride=1, pad=1, relu=False,
            out_scale=None):
     """Folded conv of NHWC ``x``. int8 (static ``act_scale`` if calibrated,
-    dynamic abs-max otherwise) into P1, which returns f32, or int8 at
-    ``out_scale``; an int8 ``x`` is such an output, already quantized at
-    this conv's ``act_scale``. Float convs run in ``run.ct``, then bias
-    (and relu) in f32."""
+    dynamic abs-max otherwise) through ``int8_conv``, which returns f32, or
+    int8 at ``out_scale``; an int8 ``x`` is such an output, already
+    quantized at this conv's ``act_scale``. Float convs run in ``run.ct``,
+    then bias (and relu) in f32."""
     kernel = node["kernel"]
     if kernel.dtype == torch.int8:
         if x.dtype == torch.int8:
@@ -227,11 +229,8 @@ def _fconv(x, node, run: _Run, stride=1, pad=1, relu=False,
         w_cols = node.get("w_cols")
         if w_cols is None:
             w_cols = kernel.reshape(cout, -1)
-        acc = int8_conv2d(q.contiguous(), w_cols, kernel.shape[1], stride,
-                          pad)
-        y = int8_epilogue(acc.view(-1, w_cols.shape[0]),
-                          sx * node["eff_scale"], node["bias"], relu,
-                          out_scale).view(acc.shape)
+        y = int8_conv(q, w_cols, kernel.shape[1], stride, pad,
+                      sx * node["eff_scale"], node["bias"], relu, out_scale)
         # the padded rows' outputs are zero: drop them
         return y if w_cols.shape[0] == cout else y[..., :cout]
     y = F.conv2d(_nchw(x).to(run.ct), kernel.to(run.ct), stride=stride,

@@ -9,8 +9,9 @@ Caffe means inside the graph, and serves one of three forwards:
 
 - ``"flax"``: the plain module as given (its compute dtype, its head);
 - ``"folded"``: the BN-folded forward (``models/quant_infer``);
-- ``"int8"``: that with the wide convs int8 at dynamic scales, P1 a node
-  of the graph (the custom op ``dbtext::int8_epilogue``).
+- ``"int8"``: that with the wide convs int8 at dynamic scales, each a
+  node of the graph (the custom op ``dbtext::int8_conv``, the convolution
+  with P1's epilogue).
 
 The folded and int8 trees live in the archive as buffers. ``prob_only``
 exports the (N, H, W, 1) prob-map graph, all the detection postprocess

@@ -1,5 +1,5 @@
 """The kernels on the card against their plain PyTorch versions: K3-K8,
-P1 and D1 forward and backward (CUDA) and K1, K2 forward and K2 backward
+P1, the int8 conv and D1 forward and backward (CUDA) and K1, K2 forward and K2 backward
 (Triton); the int8 forward on the card against the CPU.
 
 Needs an NVIDIA GPU, nvcc and Triton; skipped elsewhere. This file imports no JAX,
@@ -552,6 +552,133 @@ def test_int8_conv2d_on_the_card_matches_the_cpu(k, stride, pad, cin,
     assert torch.equal(got.cpu(), ref)
 
 
+# the int8 forward's convs at batch 8, 640x640, with skip=(): (input size,
+# Cin, Cout, k, stride, forms); the int8 form where a static forward feeds
+# the next conv (the blocks' conv1, the FPN output conv)
+INT8_CONV_SHAPES = [(160, 64, 128, 3, 2, "both"), (80, 128, 128, 3, 1, "both"),
+                    (160, 64, 128, 1, 2, "f32"), (80, 128, 256, 3, 2, "both"),
+                    (40, 256, 256, 3, 1, "both"), (80, 128, 256, 1, 2, "f32"),
+                    (40, 256, 512, 3, 2, "both"), (20, 512, 512, 3, 1, "both"),
+                    (40, 256, 512, 1, 2, "f32"), (160, 256, 256, 3, 1, "both"),
+                    (160, 256, 128, 3, 1, "f32")]
+
+
+def _conv_inputs(n, size, cin, cout, k, device, seed=0, width=None):
+    """int8 NHWC input, (kh, kw, cin) weights padded by ``pad_cols`` where
+    a width asks for it, per-row scales and biases (zero on padded rows),
+    on the card."""
+    g = torch.Generator().manual_seed(seed)
+    width = width or size
+    q = torch.randint(-127, 128, (n, size, width, cin), generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (cout, k * k * cin), generator=g,
+                      dtype=torch.int8)
+    padded = I.pad_cols(w.numpy())
+    w = w if padded is None else torch.from_numpy(padded)
+    rows = w.shape[0]
+    scale = torch.zeros(rows)
+    bias = torch.zeros(rows)
+    scale[:cout] = torch.rand(cout, generator=g) * 2e-6
+    bias[:cout] = torch.randn(cout, generator=g) * 0.5
+    return q.to(device), w.to(device), scale.to(device), bias.to(device)
+
+
+def _hold_int8_conv(q, w, k, stride, pad, scale, bias, relu, out_scale):
+    """The kernel once, bit for bit against the plain route on the card
+    (im2col, ``torch._int_mm``, P1's plain version), one launch of its
+    form."""
+    I.reset_launches()
+    got = I.int8_conv(q, w, k, stride, pad, scale, bias, relu, out_scale)
+    torch.cuda.synchronize()
+    ref = I.int8_conv_plain(q, w, k, stride, pad, scale, bias, relu,
+                            out_scale)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got, ref)
+    form = "int8_conv_f32" if out_scale is None else "int8_conv_int8"
+    assert I.LAUNCHES["int8_conv"] == I.LAUNCHES[form] == 1
+    return got
+
+
+def _forms(forms):
+    return ["f32", "int8"] if forms == "both" else [forms]
+
+
+@pytest.mark.parametrize("batch", [8, 1])
+@pytest.mark.parametrize("shape", INT8_CONV_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:5])))
+def test_int8_conv_matches_plain_route_at_forward_shapes(shape, batch,
+                                                         device):
+    """The int8 conv kernel (implicit GEMM on the tensor cores, P1's
+    epilogue in registers) is ``torch.equal`` to im2col + ``torch._int_mm``
+    + P1's plain version at every conv shape of the int8 forward, at batch
+    8 and 1, in each form the forward uses (the int8 form at an output
+    scale that clips)."""
+    size, cin, cout, k, stride, forms = shape
+    pad = k // 2
+    q, w, scale, bias = _conv_inputs(batch, size, cin, cout, k, device,
+                                     seed=size + cin + k)
+    for form in _forms(forms):
+        out_scale = (torch.tensor(0.005, device=device) if form == "int8"
+                     else None)
+        got = _hold_int8_conv(q, w, k, stride, pad, scale, bias, True,
+                              out_scale)
+        if form == "int8":
+            assert got.max() == 127
+
+
+@pytest.mark.parametrize("cin,cout,k,stride", [
+    (77, 256, 3, 1), (256, 154, 3, 2), (192, 130, 3, 1), (37, 24, 3, 1),
+    (130, 256, 1, 2), (8, 136, 3, 2), (48, 128, 3, 1)])
+@pytest.mark.parametrize("form", ["f32", "int8"])
+def test_int8_conv_matches_plain_route_at_odd_widths(cin, cout, k, stride,
+                                                     form, device):
+    """Pruned widths (Cin and Cout no multiples of 16, K and Cout padded to
+    multiples of 8 by ``pad_cols``) on a ragged M (3 x 17 x 19 pixels):
+    bit-equal to the plain route, relu on and off, the padded output
+    channels zero; an earlier conv's int8 output at padded rows, sliced to
+    its channels, is read in place."""
+    q, w, scale, bias = _conv_inputs(3, 17, cin, cout, k, device,
+                                     seed=cin + cout, width=19)
+    out_scale = torch.tensor(0.005, device=device) if form == "int8" else None
+    for relu in (True, False):
+        got = _hold_int8_conv(q, w, k, stride, k // 2, scale, bias, relu,
+                              out_scale)
+        assert not got[..., cout:].any()
+    wide = torch.zeros((3, 17, 19, -(-cin // 16) * 16 + 16),
+                       dtype=torch.int8, device=device)
+    wide[..., :cin] = q
+    _hold_int8_conv(wide[..., :cin], w, k, stride, k // 2, scale, bias,
+                    True, out_scale)
+
+
+def test_int8_conv_repeated_calls_are_equal(device):
+    """50 back-to-back calls at the FPN output conv's shape (batch 2) give
+    the first call's bits."""
+    q, w, scale, bias = _conv_inputs(2, 160, 256, 256, 3, device)
+    first = I.int8_conv(q, w, 3, 1, 1, scale, bias, True)
+    outs = [I.int8_conv(q, w, 3, 1, 1, scale, bias, True)
+            for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+    assert torch.equal(first, I.int8_conv_plain(q, w, 3, 1, 1, scale, bias,
+                                                True))
+
+
+def test_int8_conv_refuses_on_the_card(device):
+    q, w, scale, bias = _conv_inputs(1, 9, 64, 136, 3, device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        I.int8_conv(q, w[:130], 3, 1, 1, scale[:130], bias[:130], True)
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        I.int8_conv(q, w, 3, 1, 1, scale.cpu(), bias, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        I.int8_conv(q, w, 3, 1, 1, torch.stack([scale, scale], 1)[:, 0],
+                    bias, True)
+    with pytest.raises(TypeError, match="int8 NHWC"):
+        I.int8_conv(q.float(), w, 3, 1, 1, scale, bias, True)
+    with pytest.raises(ValueError, match="fewer than"):
+        I.int8_conv(q, w[:, :64], 3, 1, 1, scale, bias, True)
+
+
 def _quant_tree(seed=0):
     from db_text_minimal_tpu_torch.models import DBTextModel
     from db_text_minimal_tpu_torch.models import quant_infer as Q
@@ -567,8 +694,8 @@ def test_int8_forward_on_the_card_matches_the_cpu(float_convs, device):
     the float convs in f64 or in f32 (TF32 off) on both: with f64 every
     int8 activation is equal and the maps within 1e-6; with f32 the first
     int8 conv's input agrees at >= 99.9 % of positions. Fused and unfused
-    forwards are bit-equal on the card; P1 launches 7 times in its int8
-    form and 10 in its f32 form."""
+    forwards are bit-equal on the card; the int8 conv's kernel launches 7
+    times in its int8 form and 10 in its f32 form, P1's never."""
     from db_text_minimal_tpu_torch.models import quant_infer as Q
 
     torch.backends.cudnn.allow_tf32 = False
@@ -587,8 +714,9 @@ def test_int8_forward_on_the_card_matches_the_cpu(float_convs, device):
         runs.append((out.cpu(), [q.cpu() for q in inputs],
                      dict(I.LAUNCHES)))
     (ref, ref_q, _), (got, got_q, launches) = runs
-    assert launches["int8_epilogue_int8"] == 7
-    assert launches["int8_epilogue_f32"] == 10
+    assert launches["int8_conv_int8"] == 7
+    assert launches["int8_conv_f32"] == 10
+    assert launches["int8_epilogue"] == 0
     assert len(got_q) == len(ref_q) == 17
     if float_convs == "f64":
         assert all(torch.equal(a, b) for a, b in zip(got_q, ref_q))
@@ -626,7 +754,8 @@ def test_int8_export_on_the_card_matches_the_live_forward(device, tmp_path):
     """An int8 archive (symbolic batch, uint8 input, prob-only) exported
     and loaded on the card serves batch 1 and 3 with the live int8
     forward's maps (at most 1 % of pixels more than 1e-3 apart), and a
-    forward launches P1 17 times through the custom op."""
+    forward launches the int8 conv's kernel 17 times through the custom
+    op."""
     from db_text_minimal_tpu_torch.cli.common import make_folded_forward
     from db_text_minimal_tpu_torch.models import DBTextModel
     from db_text_minimal_tpu_torch.models.head import fuse_variables
@@ -651,7 +780,7 @@ def test_int8_export_on_the_card_matches_the_live_forward(device, tmp_path):
         I.reset_launches()
         got = infer(x)
         torch.cuda.synchronize()
-        assert I.LAUNCHES["int8_epilogue"] == 17
+        assert I.LAUNCHES["int8_conv"] == 17
         ref = live(x.float() - mean)
         assert got.shape == ref.shape == (batch, 128, 128, 1)
         assert ((got - ref).abs() > 1e-3).float().mean().item() <= 0.01

@@ -195,19 +195,21 @@ def test_meta_keys_equal_jax(mode, pth, jax_variables, tmp_path):
 
 
 def test_int8_graph_holds_17_custom_op_nodes(pth, tmp_path):
-    """The int8 archive keeps P1 as 17 ``dbtext::int8_epilogue`` nodes (the
-    17 int8 convs with skip=()), which run its plain version on the CPU:
-    no launch is counted."""
+    """The int8 archive keeps each int8 conv as one ``dbtext::int8_conv``
+    node (the convolution with P1's epilogue; 17 with skip=()), with no
+    ``torch._int_mm`` and no separate P1 node; on the CPU the op runs its
+    plain version: no launch is counted."""
     path = export_model(_source(pth, "int8"), str(tmp_path / "db.pt2"),
                         input_shape=(None, SIZE, SIZE, 3), infer_mode="int8",
                         prob_only=True, device="cpu")
     program = torch.export.load(path)
-    nodes = [n for n in program.graph.nodes
-             if n.target is torch.ops.dbtext.int8_epilogue.default]
-    assert len(nodes) == 17
+    targets = [n.target for n in program.graph.nodes]
+    assert targets.count(torch.ops.dbtext.int8_conv.default) == 17
+    assert torch.ops.aten._int_mm.default not in targets
+    assert torch.ops.dbtext.int8_epilogue.default not in targets
     I.reset_launches()
     load_exported(path, device="cpu")(_uint8(2))
-    assert I.LAUNCHES["int8_epilogue"] == 0
+    assert I.LAUNCHES["int8_conv"] == 0
 
 
 def test_pruned_checkpoint_exports_at_its_widths(pth, tmp_path):

@@ -20,11 +20,12 @@ def _port_sources():
                 yield os.path.join(root, name)
     yield os.path.join(_REPO, "chip_smoke.py")
     yield os.path.join(_REPO, "compare_kernels.py")
+    yield os.path.join(_REPO, "compare_int8.py")
 
 
 def test_port_imports_with_jax_blocked():
-    """Every module of the port, chip_smoke.py and compare_kernels.py
-    import in a process where jax, flax, optax and the JAX package cannot
+    """Every module of the port, chip_smoke.py, compare_kernels.py and
+    compare_int8.py import in a process where jax, flax, optax and the JAX package cannot
     be imported (this process already holds jax, so the check runs in a
     subprocess)."""
     snippet = """
@@ -33,7 +34,7 @@ for name in ("jax", "jaxlib", "flax", "optax", "db_text_minimal_tpu"):
     sys.modules[name] = None
 import db_text_minimal_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for name in names + ["chip_smoke", "compare_kernels"]:
+for name in names + ["chip_smoke", "compare_kernels", "compare_int8"]:
     importlib.import_module(name)
 print(" ".join(names))
 print(len(names))
@@ -52,7 +53,7 @@ print(len(names))
                    "utils.visualize", "utils.profiling", "cli.test",
                    "cli.webcam", "cli.pretrain_backbone",
                    "train.backbone_pretrain", "train.flax_msgpack",
-                   "parallel", "ops.deform"):
+                   "parallel", "ops.deform", "ops.int8"):
         assert f"db_text_minimal_tpu_torch.{module}" in names
     assert int(count) >= 67
 

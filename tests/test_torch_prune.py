@@ -406,7 +406,8 @@ def test_odd_keeps_pad_k_and_n_to_multiples_of_8(variables, monkeypatch):
     """At odd keeps the int8 GEMMs' K and N are padded to multiples of 8
     (w_cols, eff_scale, bias) where they are not already, and the padded
     forward gives the bits of the same forward on the unpadded tree with
-    P1's plain version (P1 itself takes C in multiples of 4)."""
+    the int8 conv's plain version (its kernel takes Cout in multiples of
+    8)."""
     _, (got, _) = _prune_both(variables, KEEPS["odd"])
     qv = Q.prepare_quant_params(fuse_variables(got), skip=())
     padded = []
@@ -452,7 +453,7 @@ def test_odd_keeps_pad_k_and_n_to_multiples_of_8(variables, monkeypatch):
         2, 64, 64, 3).astype(np.float32))
     with torch.inference_mode():
         a = Q.quant_dbnet_forward(qv, x)
-        monkeypatch.setattr(Q, "int8_epilogue", I.int8_epilogue_plain)
+        monkeypatch.setattr(Q, "int8_conv", I.int8_conv_plain)
         b = Q.quant_dbnet_forward(plain, x)
     assert torch.equal(a, b)
 

@@ -379,13 +379,14 @@ def test_int8_forward_in_f32_tracks_jax(scales, jax_variables):
 
 def _count_forms(monkeypatch):
     forms = []
-    real = Q.int8_epilogue
+    real = Q.int8_conv
 
-    def counting(acc, scale, bias, relu, out_scale=None):
+    def counting(q, w_cols, k, stride, pad, scale, bias, relu,
+                 out_scale=None):
         forms.append("f32" if out_scale is None else "int8")
-        return real(acc, scale, bias, relu, out_scale)
+        return real(q, w_cols, k, stride, pad, scale, bias, relu, out_scale)
 
-    monkeypatch.setattr(Q, "int8_epilogue", counting)
+    monkeypatch.setattr(Q, "int8_conv", counting)
     return forms
 
 
