@@ -75,6 +75,34 @@ Phases, one output line each (or more), stopping at the first failure:
              serve phase for each, and each forward profiled (top kernels;
              the int8 forwards call no torch._int_mm and no unfold, and
              launch no P1 kernel). Then the quant checks (see check).
+4b. rewrites - the JAX package's weight-exact rewrites of the folded
+             forwards (stem_s2d: the 7x7/s2 stem as a 4x4/s1 conv over the
+             space-to-depth input; deconv_d2s: each head deconv as a 1x1
+             product and depth-to-space) on the same batch, on the .pth
+             and on it with its BN statistics calibrated to the batch: the
+             folded forward, the int8 forward at dynamic scales and at
+             static ones calibrated as the quant phase does, each plain,
+             with stem_s2d, with deconv_d2s and with both. With the float
+             convs in f64 every form equals the plain form of its mode
+             (int8 activations equal, maps within 1e-6). In bf16 on the
+             calibrated weights the folded forms and the deconv_d2s forms
+             lie within max 2e-2 and mean 1e-3 of the plain form (the JAX
+             package's bound for this bf16 comparison); in bf16 on both
+             weights no form lies further from the plain form than the
+             plain form's bf16 maps from its fp32 ones (the int8 forms
+             with stem_s2d are held to this alone: the stem's other
+             summation order moves int8 activations across rounding
+             boundaries, as any change of float rounding does). The int8
+             conv's kernel 17 times an int8 forward in every form.
+             The slice's path, the int8 forward with both rewrites then
+             box mode's device postprocess, driven with the counts at 0
+             (the int8 conv 17 times, K3-K6). Each prob-only forward timed
+             cold in turns (plain, s2d, d2s, both, both, d2s, s2d, plain;
+             median of 11 by CUDA events after warm-up, the L2 flushed
+             before each call) and profiled: the card's busy ms, the head
+             deconvs' device ms (a record_function range around each),
+             the top five kernels and whether cuDNN's dgrad kernel is
+             still there.
 5. export  - serve/export on the same .pth at 640x640: the flax (bf16),
              folded and int8 archives (.pt2; symbolic batch, uint8 input,
              the folded and int8 ones prob-only), each loaded back, batch 1
@@ -222,7 +250,8 @@ import torch
 
 from db_text_minimal_tpu_torch.cli import prune as prune_cli
 from db_text_minimal_tpu_torch.cli import quality_bench
-from db_text_minimal_tpu_torch.cli.common import (build_inference_forward,
+from db_text_minimal_tpu_torch.cli.common import (_fp32_convolutions,
+                                                  build_inference_forward,
                                                   load_model,
                                                   load_state_dict,
                                                   make_folded_forward)
@@ -1661,13 +1690,269 @@ def phase_quant(pth: str, flax_forward_ms: float) -> dict:
             "batch": batch}
 
 
-def event_median(fn, reps: int = 11) -> float:
+REWRITE_FORMS = {"plain": {}, "s2d": {"stem_s2d": True},
+                 "d2s": {"deconv_d2s": True},
+                 "both": {"stem_s2d": True, "deconv_d2s": True}}
+REWRITE_MODES = {"folded": {"min_out_channels": 10 ** 9},
+                 "int8": {"skip": ()}, "int8 static": {"skip": ()}}
+REWRITE_MAX, REWRITE_MEAN, REWRITE_EXACT = 2e-2, 1e-3, 1e-6
+REWRITE_TURNS = ("plain", "s2d", "d2s", "both", "both", "d2s", "s2d",
+                 "plain")
+
+
+def deconv_profile(fn, reps: int = 3) -> tuple[float, float, dict]:
+    """torch.profiler over ``reps`` calls of a folded forward (one warm-up
+    call first, the L2 flushed before each call, the flush not counted),
+    with a ``record_function("fdeconv")`` range around each head deconv
+    (``quant_infer._fdeconv`` wrapped for these calls): the card's busy ms
+    a call, the deconvs' device ms a call and ms a call by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    real = Q._fdeconv
+
+    def ranged(*args, **kwargs):
+        with record_function("fdeconv"):
+            return real(*args, **kwargs)
+
+    Q._fdeconv = ranged
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush_l2()
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        Q._fdeconv = real
+    by_name: dict = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA and FLUSH_NAME not in e.name
+                and e.name != "fdeconv"
+                and not getattr(e, "is_user_annotation", False)):
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / reps)
+    deconv = sum(_device_ms(e) for e in prof.events()
+                 if e.name == "fdeconv"
+                 and e.device_type == DeviceType.CPU) / reps
+    return sum(by_name.values()), deconv, by_name
+
+
+def rewrite_trees(sd: dict, batch: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16) -> dict:
+    """(mode, form) -> the folded tree on the card, each of REWRITE_MODES
+    in each of REWRITE_FORMS; "int8 static" calibrated on the batch's
+    first 2 images with the float convs in ``dtype``, as the quant phase
+    calibrates."""
+    trees = {}
+    for mode, kw in REWRITE_MODES.items():
+        for form, flags in REWRITE_FORMS.items():
+            qv = Q.tree_to(Q.prepare_quant_params(sd, **kw, **flags), "cuda")
+            if mode == "int8 static":
+                qv = Q.calibrate_activation_scales(qv, [batch[:2]],
+                                                   compute_dtype=dtype)
+            trees[mode, form] = qv
+    return trees
+
+
+def rewrite_forward(tree: dict, batch: torch.Tensor, prob_only: bool = True,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    with torch.inference_mode():
+        return Q.quant_dbnet_forward(tree, batch, prob_only=prob_only,
+                                     compute_dtype=dtype)
+
+
+def gap(a: torch.Tensor, b: torch.Tensor) -> dict:
+    diff = (a - b).abs()
+    return {"max": diff.max().item(), "mean": diff.mean().item()}
+
+
+def rewrite_gaps(sd: dict, batch: torch.Tensor) -> dict:
+    """Both maps of every mode's rewritten forms against its plain form on
+    ``sd``, with the float convs in bf16 and in fp32 (TF32 off), and each
+    mode's plain form in bf16 against fp32 (the envelope of float
+    rounding alone): max and mean abs."""
+    maps = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        trees = rewrite_trees(sd, batch, dtype)
+        for key, tree in trees.items():
+            maps[key + (dtype,)] = rewrite_forward(tree, batch, False, dtype)
+        del trees
+    out: dict = {}
+    for mode in REWRITE_MODES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).removeprefix("torch.")
+            for form in ("s2d", "d2s", "both"):
+                out.setdefault(mode, {})[f"{form} {name}"] = gap(
+                    maps[mode, form, dtype], maps[mode, "plain", dtype])
+        out[mode]["plain bfloat16 vs float32"] = gap(
+            maps[mode, "plain", torch.bfloat16],
+            maps[mode, "plain", torch.float32])
+    return out
+
+
+def bn_calibrated_pth(pth: str, batch: torch.Tensor) -> str:
+    """The served .pth with every BN's statistics calibrated to the served
+    batch (``calibrate_bn``, fp32), saved beside it."""
+    model = DBTextModel().cuda()
+    model.load_state_dict(torch.load(pth, map_location="cuda"))
+    calibrate_bn(model, batch)
+    out = pth.removesuffix(".pth") + "_bn.pth"
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, out)
+    return out
+
+
+def rewrite_exact(sd: dict, batch: torch.Tensor) -> dict:
+    """Every mode's rewritten forms against its plain form on ``sd`` with
+    the float convs in f64 (rounded to f32 after, as in every dtype), so
+    that summation order stops mattering: every int8 conv's int8 input
+    equal, both maps within REWRITE_EXACT. Returns the largest gaps."""
+    out = {}
+    trees = rewrite_trees(sd, batch, torch.float64)
+    for mode in REWRITE_MODES:
+        runs = {}
+        for form in REWRITE_FORMS:
+            inputs: list = []
+            with torch.inference_mode():
+                maps = Q.quant_dbnet_forward(
+                    trees[mode, form], batch, compute_dtype=torch.float64,
+                    int8_inputs=inputs)
+            runs[form] = (maps, inputs)
+        ref, ref_q = runs["plain"]
+        for form in ("s2d", "d2s", "both"):
+            maps, inputs = runs[form]
+            if len(inputs) != len(ref_q) or not all(
+                    torch.equal(a, b) for a, b in zip(inputs, ref_q)):
+                raise AssertionError(f"rewrites {mode} {form}, float convs "
+                                     f"in f64: an int8 activation differs "
+                                     f"from the plain form's")
+            g = gap(maps, ref)
+            if not g["max"] <= REWRITE_EXACT:
+                raise AssertionError(f"rewrites {mode} {form}, float convs "
+                                     f"in f64: maps {g}")
+            out[f"{mode} {form}"] = g["max"]
+    return out
+
+
+def phase_rewrites(pth: str, batch: torch.Tensor) -> dict:
+    """The ``stem_s2d`` and ``deconv_d2s`` forms of the folded and int8
+    forwards on the served batch (f32 on the card, the means subtracted),
+    on the served .pth and on it with its BN statistics calibrated to that
+    batch (``calibrate_bn``). Held: with the float convs in f64, every
+    rewritten form equal to the plain form of its mode (int8 activations
+    equal, maps within REWRITE_EXACT); in bf16 on the calibrated weights
+    the folded forms and every ``deconv_d2s``-only form within REWRITE_MAX
+    / REWRITE_MEAN of the plain form; in bf16 on both weights, every
+    form's gap no larger than the plain form's own bf16-against-fp32 gap.
+    The int8 forms with the space-to-depth stem are not held to
+    REWRITE_MAX / REWRITE_MEAN in bf16: there the stem's other summation
+    order moves int8 activations across rounding boundaries, as any
+    change of float rounding does (printed beside). Then the slice's path
+    driven with the counts at 0; each form timed in turns and profiled
+    (see the module). Returns the path's launches: ``cc`` (K3-K6) and
+    ``i8`` (the int8 conv)."""
+    _fp32_convolutions()
+    sd = load_state_dict(pth, fuse_head=True)
+    sd_bn = load_state_dict(bn_calibrated_pth(pth, batch), fuse_head=True)
+    report: dict = {"card": smi_line(), "batch": list(batch.shape),
+                    "tolerance": {"max": REWRITE_MAX, "mean": REWRITE_MEAN,
+                                  "f64": REWRITE_EXACT},
+                    "f64_max_gap": rewrite_exact(sd_bn, batch),
+                    "gaps": {"served": rewrite_gaps(sd, batch),
+                             "served_bn": rewrite_gaps(sd_bn, batch)}}
+    failed = []
+    for weights, by_mode in report["gaps"].items():
+        for mode, by_form in by_mode.items():
+            envelope = by_form["plain bfloat16 vs float32"]
+            for form in ("s2d", "d2s", "both"):
+                g = by_form[f"{form} bfloat16"]
+                if not (g["max"] <= envelope["max"]
+                        and g["mean"] <= envelope["mean"]):
+                    failed.append(f"{weights} {mode} {form} bf16 {g} "
+                                  f"beyond plain bf16 vs fp32 {envelope}")
+                held = mode == "folded" or form == "d2s"
+                if weights == "served_bn" and held and not (
+                        g["max"] < REWRITE_MAX and g["mean"] < REWRITE_MEAN):
+                    failed.append(f"{weights} {mode} {form} bf16 {g}")
+    trees = rewrite_trees(sd_bn, batch)
+    want = {"folded": (0, 0), "int8": (0, INT8_CONVS),
+            "int8 static": (FUSED_PLACES, INT8_CONVS - FUSED_PLACES)}
+    for mode in REWRITE_MODES:
+        for form in REWRITE_FORMS:
+            I8.reset_launches()
+            out = rewrite_forward(trees[mode, form], batch, False)
+            torch.cuda.synchronize()
+            got = (I8.LAUNCHES["int8_conv_int8"],
+                   I8.LAUNCHES["int8_conv_f32"])
+            if got != want[mode] or I8.LAUNCHES["int8_epilogue"]:
+                raise AssertionError(f"rewrites {mode} {form}: int8 "
+                                     f"launches {dict(I8.LAUNCHES)}, want "
+                                     f"{want[mode]}")
+            if (out.shape != (N, SIZE, SIZE, 2)
+                    or not torch.isfinite(out).all()):
+                raise AssertionError(f"rewrites {mode} {form}: maps "
+                                     f"{tuple(out.shape)}, finite "
+                                     f"{torch.isfinite(out).all().item()}")
+        turns: dict = {form: [] for form in REWRITE_FORMS}
+        for form in REWRITE_TURNS:
+            turns[form].append(event_median(
+                lambda: rewrite_forward(trees[mode, form], batch), cold=True))
+        forms = {}
+        for form in REWRITE_FORMS:
+            busy, deconv, by_name = deconv_profile(
+                lambda: rewrite_forward(trees[mode, form], batch))
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+            forms[form] = {
+                "ms_turns": turns[form],
+                "ms": float(np.mean(turns[form])),
+                "busy_ms": busy, "deconv_device_ms": deconv,
+                "dgrad": any("dgrad" in k.lower() for k in by_name),
+                "top5": {k[:70]: round(v, 4) for k, v in top}}
+        report[mode] = forms
+    # the slice's path: the int8 forward with both rewrites, then box
+    # mode's device postprocess, the counts set to 0 just before it
+    handler = DBTextDetectionHandler(pth, infer_mode="int8")
+    both = trees["int8", "both"]
+    rewrite_forward(both, batch)
+    torch.cuda.synchronize()
+    cc.reset_launches()
+    I8.reset_launches()
+    result = handler.postprocess_boxes(rewrite_forward(both, batch))
+    torch.cuda.synchronize()
+    launches = {"cc": dict(cc.LAUNCHES), "i8": dict(I8.LAUNCHES)}
+    check_launches(launches["cc"], RECT_PATH, "rewrites path, box mode")
+    if launches["i8"]["int8_conv_f32"] != INT8_CONVS:
+        raise AssertionError(f"rewrites path: int8 launches "
+                             f"{launches['i8']}")
+    check_box_result(result)
+    report["path"] = {"boxes": [len(r["boxes"]) for r in result],
+                      **launches}
+    log(f"rewrites {'FAILED' if failed else 'ok'}: {json.dumps(report)}")
+    if failed:
+        raise AssertionError("rewrites: maps outside the bound: "
+                             + "; ".join(failed))
+    return launches
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def event_median(fn, reps: int = 11, cold: bool = False) -> float:
     """Median ms of ``fn`` by CUDA events around each call, after two
-    warm-up calls (no L2 flush: whole forwards)."""
+    warm-up calls; with ``cold`` the L2 flushed before each call, outside
+    the events."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(reps):
+        if cold:
+            flush_l2()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3555,9 +3840,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = smi_line()
     log(f"device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     try:
@@ -3577,6 +3860,7 @@ def main() -> int:
             quant = phase_quant(pth, flax_ms)
             phase_check_quant(preds, quant)
             i8_launches = quant["launches"]
+            rw_launches = phase_rewrites(pth, quant["batch"])
             del quant
             phase_export(workdir, pth)
             phase_prune(workdir, pth)
@@ -3604,6 +3888,7 @@ def main() -> int:
         else:
             row["launches"] = launches[kernel]
             row["launches_in"] = f"serve, box mode: one batch of {N}"
+            row["launches_rewrites"] = rw_launches["cc"][kernel]
     for row in db_rows:
         row["launches"] = train_launches[row["name"]]
         row["launches_ddp"] = tools["k2"].get(row["name"], 0)
@@ -3614,6 +3899,7 @@ def main() -> int:
         row["launches"] = i8_launches[counter]
         row["launches_ocr"] = ocr_i8[counter]
         row["launches_cli_test"] = tools["i8"][counter]
+        row["launches_rewrites"] = rw_launches["i8"][counter]
         row["launches_in"] = (f"quant: the int8 handler's box and masks "
                               f"forwards and the static forward's, batch "
                               f"of {N} (the kernel's count in this form)")

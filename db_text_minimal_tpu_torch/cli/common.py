@@ -112,22 +112,24 @@ def make_forward(model: DBTextModel):
 
 
 def make_folded_forward(state_dict: dict, quantize: bool = False,
-                        prob_only: bool = False, calibration=None,
-                        skip: tuple = (), device="cuda"):
+                        stem_s2d: bool = False, prob_only: bool = False,
+                        calibration=None, skip: tuple = (), device="cuda"):
     """The folded inference forward of the flagship resnet18 + FPN model
     (``models/quant_infer``): BN folded offline; with ``quantize`` the wide
     convs int8 but those under a name in ``skip`` (the default ``()``
     quantizes the fused head's conv1 too), at static scales calibrated on
     the batches of ``calibration`` where given, else dynamic ones;
-    optionally the prob-only head. ``state_dict`` is in the ``FusedDBHead``
-    layout. Returns ``forward(x, prob_only=prob_only)``: a float32 NHWC
-    batch (numpy or tensor) -> NHWC maps on ``device``; its folded tree is
-    ``forward.qvars``."""
+    optionally the space-to-depth stem (``stem_s2d``, off by default as in
+    the JAX package) and the prob-only head. ``state_dict`` is in the
+    ``FusedDBHead`` layout. Returns ``forward(x, prob_only=prob_only)``: a
+    float32 NHWC batch (numpy or tensor) -> NHWC maps on ``device``; its
+    folded tree is ``forward.qvars``."""
     device = resolve_device(device)
     _fp32_convolutions()
     qv = tree_to(prepare_quant_params(
         state_dict, skip=skip,
-        min_out_channels=128 if quantize else 10**9), device)
+        min_out_channels=128 if quantize else 10**9,
+        stem_s2d=stem_s2d), device)
     if quantize and calibration is not None:
         qv = calibrate_activation_scales(qv, calibration)
 

@@ -3,9 +3,9 @@ DetEval box protocols and the QuadMetric batch wrapper."""
 
 from .deteval import DetectionDetEvalEvaluator
 from .iou import DetectionIoUEvaluator, polygon_iou
-from .pixel import AverageMeter, RunningScore, fast_hist
+from .pixel import AverageMeter, RunningScore, cal_text_score, fast_hist
 from .quad import QuadMetric
 
 __all__ = ["DetectionDetEvalEvaluator", "DetectionIoUEvaluator",
-           "polygon_iou", "AverageMeter", "RunningScore", "fast_hist",
-           "QuadMetric"]
+           "polygon_iou", "AverageMeter", "RunningScore", "cal_text_score",
+           "fast_hist", "QuadMetric"]

@@ -1,7 +1,8 @@
 """Pixel-level segmentation metrics.
 
 Port of ``fast_hist``, ``RunningScore`` (Overall/Mean Acc, Mean IoU, FreqW
-Acc) and ``AverageMeter`` from ``db_text_minimal_tpu/metrics/pixel.py``. The
+Acc), ``cal_text_score`` and ``AverageMeter`` from
+``db_text_minimal_tpu/metrics/pixel.py``. The
 train and eval steps count their 2×2 histograms on the device
 (``train.trainer.confusion_hist_2x2``); the running matrix is host numpy.
 """
@@ -54,6 +55,20 @@ class RunningScore:
 
     def reset(self):
         self.confusion_matrix = np.zeros((self.n_classes, self.n_classes))
+
+
+def cal_text_score(texts, gt_texts, training_masks, running_metric_text,
+                   thresh: float = 0.5):
+    """Threshold the predicted prob map under the supervision mask, update
+    the running confusion matrix with it against the GT text map and
+    return its scores. Inputs are (N, H, W) arrays or CPU tensors."""
+    training_masks = np.asarray(training_masks)
+    pred_text = np.asarray(texts) * training_masks
+    pred_text = (pred_text > thresh).astype(np.int32)
+    gt_text = (np.asarray(gt_texts) * training_masks).astype(np.int32)
+    running_metric_text.update(gt_text, pred_text)
+    score_text, _ = running_metric_text.get_scores()
+    return score_text
 
 
 class AverageMeter:

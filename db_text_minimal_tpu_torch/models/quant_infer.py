@@ -29,6 +29,24 @@ column order of the im2col), deconv kernels in ``ConvTranspose2d``'s
 (in, out, kh, kw), ``bias`` and ``eff_scale`` f32 (C,), ``act_scale`` a 0-d
 f32 tensor. ``weights.quant_vars_from_jax`` carries the JAX package's tree
 into it.
+
+Two weight-exact rewrites, off by default as in the JAX package, chosen in
+``prepare_quant_params`` and recognised by the forward from the kernels'
+shapes:
+
+- ``stem_s2d``: the 7x7/s2 stem, pad 3, over (N, H, W, 3) becomes a 4x4/s1
+  conv, pad ((2, 1), (2, 1)), over the 2x2 space-to-depth input (N, H/2,
+  W/2, 12), channels in (dy, dx, c) order. Its kernel is OIHW (64, 12, 4,
+  4) (OHWI (64, 4, 4, 12) when int8): the 7x7 kernel padded to 8x8 with a
+  leading zero row and column, each 2x2 block folded into the channels
+  (``_s2d_stem_kernel``). Every tap is the original's.
+- ``deconv_d2s``: each of the head's 2x2/s2 transposed convs, which writes
+  ``y[2i+dy, 2j+dx, o] = sum_c x[i, j, c] * W[c, o, dy, dx]`` for
+  ``ConvTranspose2d``'s (in, out, 2, 2) kernel W, becomes a 1x1 OIHW kernel
+  (4*cout, cin, 1, 1), channels in (dy, dx, o) order, with no spatial flip
+  (``_d2s_deconv_kernel``; the JAX kernel flips because
+  ``lax.conv_transpose`` applies it flipped): one product per pixel, then
+  ``_depth_to_space``. The bias stays (cout,).
 """
 
 from __future__ import annotations
@@ -100,6 +118,48 @@ def _quantize(node: dict) -> dict:
     return out
 
 
+def _s2d_stem_kernel(k7: np.ndarray) -> np.ndarray:
+    """The stem's OIHW (cout, cin, 7, 7) kernel -> the weight-exact OIHW
+    (cout, 4*cin, 4, 4) kernel of a stride-1 conv, pad ((2, 1), (2, 1)),
+    over ``_space_to_depth`` of the input: padded to 8x8 with a leading
+    zero row and column (tap offset -4), then each 2x2 block (dy, dx) of
+    the taps folded into the input channels in (dy, dx, c) order."""
+    cout, cin, kh, kw = k7.shape
+    k8 = np.zeros((cout, cin, kh + 1, kw + 1), k7.dtype)
+    k8[:, :, 1:, 1:] = k7
+    k4 = k8.reshape(cout, cin, (kh + 1) // 2, 2, (kw + 1) // 2, 2)
+    return np.ascontiguousarray(k4.transpose(0, 3, 5, 1, 2, 4)).reshape(
+        cout, 4 * cin, (kh + 1) // 2, (kw + 1) // 2)
+
+
+def _d2s_deconv_kernel(k: np.ndarray) -> np.ndarray:
+    """A 2x2/s2 transposed conv's (cin, cout, 2, 2) kernel -> the
+    weight-exact 1x1 OIHW kernel (4*cout, cin, 1, 1) of a 1x1 conv followed
+    by ``_depth_to_space``: ``ConvTranspose2d`` at stride 2, kernel 2, pad 0
+    writes ``y[2i+dy, 2j+dx, o] = sum_c x[i, j, c] * k[c, o, dy, dx]``, so
+    output channel (dy, dx, o) takes k[:, o, dy, dx], unflipped."""
+    cin, cout, kh, kw = k.shape
+    assert (kh, kw) == (2, 2), k.shape
+    return np.ascontiguousarray(k.transpose(2, 3, 1, 0)).reshape(
+        4 * cout, cin, 1, 1)
+
+
+def _space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """NHWC (N, H, W, C) -> (N, H/2, W/2, 4C), channel order (dy, dx, c)."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // 2, 2, w // 2, 2, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4 * c)
+
+
+def _depth_to_space(x: torch.Tensor) -> torch.Tensor:
+    """NHWC (N, H, W, 4C), channel order (dy, dx, c) -> (N, 2H, 2W, C): the
+    inverse of ``_space_to_depth``."""
+    n, h, w, c4 = x.shape
+    c = c4 // 4
+    x = x.reshape(n, h, w, 2, 2, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, c)
+
+
 def tree_to(tree, device) -> dict:
     """The folded tree with numpy or torch leaves as torch tensors on
     ``device``."""
@@ -110,14 +170,22 @@ def tree_to(tree, device) -> dict:
 
 def prepare_quant_params(state_dict: dict, skip: tuple = DEFAULT_SKIP,
                          min_out_channels: int = 128,
-                         min_in_channels: int = 64) -> dict:
+                         min_in_channels: int = 64,
+                         stem_s2d: bool = False,
+                         deconv_d2s: bool = False) -> dict:
     """A ``DBTextModel`` state_dict in the ``FusedDBHead`` layout
     (``head.fuse_variables`` first) -> the folded, selectively quantized
     tree for ``quant_dbnet_forward``, on the CPU (``tree_to`` moves it).
 
     Subtrees whose path names an entry of ``skip`` stay float (default: the
     segmentation head). ``min_out_channels=10**9`` gives the BN-folded
-    float forward."""
+    float forward. ``stem_s2d`` rewrites the folded stem into its
+    space-to-depth form (``_s2d_stem_kernel``; Cout 64 and Cin 12, so it
+    stays float unless ``min_out_channels`` and ``min_in_channels`` are
+    lowered), ``deconv_d2s`` the head's
+    folded transposed convs into 1x1 conv + depth-to-space
+    (``_d2s_deconv_kernel``), both before quantization, as the JAX
+    package does."""
     sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
 
     def bn(prefix):
@@ -138,8 +206,10 @@ def prepare_quant_params(state_dict: dict, skip: tuple = DEFAULT_SKIP,
     out: dict = {"backbone": {}, "segmentation_body": {},
                  "segmentation_head": {}}
     ob = out["backbone"]
-    ob["conv1"] = maybe_quant(conv("backbone.conv1", "backbone.bn1"),
-                              ("backbone", "conv1"))
+    stem = conv("backbone.conv1", "backbone.bn1")
+    if stem_s2d:
+        stem["kernel"] = _s2d_stem_kernel(stem["kernel"])
+    ob["conv1"] = maybe_quant(stem, ("backbone", "conv1"))
     for stage in range(1, 5):
         for block in range(2):
             name = f"layer{stage}_{block}"
@@ -170,12 +240,15 @@ def prepare_quant_params(state_dict: dict, skip: tuple = DEFAULT_SKIP,
                               ("segmentation_head", "conv1"))
     for branch in ("binarize", "thresh"):
         pre = f"segmentation_head.{branch}"
-        oh[f"{branch}_deconv1"] = _fold(
-            sd[f"{pre}_deconv1.weight"], sd[f"{pre}_deconv1.bias"],
-            bn(f"{pre}_bn2"), out_axis=1)
-        oh[f"{branch}_deconv2"] = _fold(
-            sd[f"{pre}_deconv2.weight"], sd[f"{pre}_deconv2.bias"],
-            out_axis=1)
+        d1 = _fold(sd[f"{pre}_deconv1.weight"], sd[f"{pre}_deconv1.bias"],
+                   bn(f"{pre}_bn2"), out_axis=1)
+        d2 = _fold(sd[f"{pre}_deconv2.weight"], sd[f"{pre}_deconv2.bias"],
+                   out_axis=1)
+        if deconv_d2s:
+            d1["kernel"] = _d2s_deconv_kernel(d1["kernel"])
+            d2["kernel"] = _d2s_deconv_kernel(d2["kernel"])
+        oh[f"{branch}_deconv1"] = d1
+        oh[f"{branch}_deconv2"] = d2
     return tree_to({"params": out}, "cpu")
 
 
@@ -206,14 +279,25 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def _ksize(kernel: torch.Tensor) -> int:
+    """A folded conv kernel's spatial size: OHWI when int8, else OIHW."""
+    return kernel.shape[1] if kernel.dtype == torch.int8 else kernel.shape[2]
+
+
 def _fconv(x, node, run: _Run, stride=1, pad=1, relu=False,
            out_scale=None):
     """Folded conv of NHWC ``x``. int8 (static ``act_scale`` if calibrated,
     dynamic abs-max otherwise) through ``int8_conv``, which returns f32, or
     int8 at ``out_scale``; an int8 ``x`` is such an output, already
     quantized at this conv's ``act_scale``. Float convs run in ``run.ct``,
-    then bias (and relu) in f32."""
+    then bias (and relu) in f32. ``pad`` is a symmetric int or an explicit
+    ((top, bottom), (left, right)), which zero-pads the input (the int8
+    input after quantization: int8 zero is exact) for a conv at pad 0."""
     kernel = node["kernel"]
+    widths = None
+    if not isinstance(pad, int):
+        (top, bottom), (left, right) = pad
+        widths, pad = (0, 0, left, right, top, bottom), 0
     if kernel.dtype == torch.int8:
         if x.dtype == torch.int8:
             q, sx = x, node["act_scale"]
@@ -225,6 +309,8 @@ def _fconv(x, node, run: _Run, stride=1, pad=1, relu=False,
             q = quantize_per_tensor(x, sx)
         if run.int8_inputs is not None:
             run.int8_inputs.append(q)
+        if widths is not None:
+            q = F.pad(q, widths)
         cout = kernel.shape[0]
         w_cols = node.get("w_cols")
         if w_cols is None:
@@ -233,6 +319,8 @@ def _fconv(x, node, run: _Run, stride=1, pad=1, relu=False,
                       sx * node["eff_scale"], node["bias"], relu, out_scale)
         # the padded rows' outputs are zero: drop them
         return y if w_cols.shape[0] == cout else y[..., :cout]
+    if widths is not None:
+        x = F.pad(x, widths)
     y = F.conv2d(_nchw(x).to(run.ct), kernel.to(run.ct), stride=stride,
                  padding=pad)
     y = _nhwc(y).float() + node["bias"]
@@ -240,10 +328,18 @@ def _fconv(x, node, run: _Run, stride=1, pad=1, relu=False,
 
 
 def _fdeconv(x, node, run: _Run, relu=False):
-    """Folded 2x2/s2 transposed conv in ``run.ct``."""
-    y = F.conv_transpose2d(_nchw(x).to(run.ct), node["kernel"].to(run.ct),
-                           stride=2)
-    y = _nhwc(y).float() + node["bias"]
+    """Folded 2x2/s2 transposed conv in ``run.ct``; a 1x1 kernel (4*cout,
+    cin, 1, 1) selects its ``deconv_d2s`` form, one product per pixel into
+    (dy, dx, o) channels, then ``_depth_to_space``. Bias and relu in
+    f32."""
+    kernel = node["kernel"]
+    if kernel.shape[-1] == 1:
+        w = kernel.to(run.ct).reshape(kernel.shape[0], -1)
+        y = _depth_to_space(torch.matmul(x.to(run.ct), w.t()))
+    else:
+        y = _nhwc(F.conv_transpose2d(_nchw(x).to(run.ct),
+                                     kernel.to(run.ct), stride=2))
+    y = y.float() + node["bias"]
     return torch.relu(y) if relu else y
 
 
@@ -283,7 +379,12 @@ def quant_dbnet_forward(qvars: dict, x: torch.Tensor, prob_only: bool = False,
     run = _Run(compute_dtype or _compute_dtype(x.device),
                fuse and maxes is None, maxes, int8_inputs)
 
-    h = _fconv(x, bp["conv1"], run, stride=2, pad=3, relu=True)
+    stem = bp["conv1"]
+    if _ksize(stem["kernel"]) == 4:   # the space-to-depth stem (stem_s2d)
+        h = _fconv(_space_to_depth(x), stem, run, stride=1,
+                   pad=((2, 1), (2, 1)), relu=True)
+    else:
+        h = _fconv(x, stem, run, stride=2, pad=3, relu=True)
     h = _nhwc(max_pool_3x3_s2(_nchw(h)))
     feats = []
     for stage in range(1, 5):

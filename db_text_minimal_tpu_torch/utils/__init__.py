@@ -1,5 +1,5 @@
-"""Shared helpers: image reading and preprocessing, box drawing, device selection,
-seeding and logging.
+"""Shared helpers: image reading and preprocessing, padding to a multiple,
+box drawing, device selection, seeding, logging and a call timer.
 
 Counterpart of ``db_text_minimal_tpu/utils/__init__.py`` and of
 ``filter_zero_boxes`` in ``utils/visualize.py``. The overlays are in
@@ -12,9 +12,11 @@ quirk is kept for checkpoint parity.
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import random
+import time
 
 import numpy as np
 import torch
@@ -84,6 +86,34 @@ def test_preprocess(img: np.ndarray, mean=CAFFE_MEAN, pad: bool = False,
     img = test_resize(img, size=size, pad=pad).astype(np.float32)
     img = img - np.asarray(mean, dtype=np.float32)
     return np.expand_dims(img, axis=0)
+
+
+def pad_to_multiple(img: np.ndarray, multiple: int = 32):
+    """An NHWC or HWC image zero-padded at the bottom and right so that H
+    and W are multiples of ``multiple`` (the backbone's stride 32), and
+    the original (H, W)."""
+    h, w = img.shape[-3:-1]
+    ph = (-h) % multiple
+    pw = (-w) % multiple
+    if ph == 0 and pw == 0:
+        return img, (h, w)
+    pad_width = [(0, 0)] * (img.ndim - 3) + [(0, ph), (0, pw), (0, 0)]
+    return np.pad(img, pad_width), (h, w)
+
+
+def timer(func):
+    """Decorator that prints the wall-clock seconds of each call of
+    ``func``."""
+
+    @functools.wraps(func)
+    def wrapper(*args, **kwargs):
+        start = time.time()
+        result = func(*args, **kwargs)
+        end = time.time()
+        print(">>> Function {}: {}'s".format(func.__name__, end - start))
+        return result
+
+    return wrapper
 
 
 def filter_zero_boxes(box_list, score_list, is_output_polygon: bool):

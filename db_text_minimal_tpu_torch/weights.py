@@ -183,7 +183,11 @@ def quant_vars_from_jax(qvars: Mapping[str, Any]) -> dict:
     the port's ``models.quant_infer`` tree (CPU tensors): float conv
     kernels OIHW, int8 conv kernels OHWI (int8 stays int8), deconv kernels
     as ``_kernel`` lays them out; ``bias``, ``eff_scale`` and ``act_scale``
-    as f32 tensors."""
+    as f32 tensors. The rewritten forms carry over as the port lays them
+    out: the ``stem_s2d`` stem (4, 4, 12, 64) as any conv, and a
+    ``deconv_d2s`` kernel (1, 1, cin, 4*cout), recognised by its 1x1
+    shape, by the plain HWIO -> OIHW transpose (both order its output
+    channels (dy, dx, o); the JAX rewrite already undid the flip)."""
 
     def node(name: str, leaves: Mapping[str, Any]) -> dict:
         out = {}
@@ -193,7 +197,8 @@ def quant_vars_from_jax(qvars: Mapping[str, Any]) -> dict:
                 if value.dtype == np.int8:
                     value = np.transpose(value, (3, 0, 1, 2))   # OHWI
                 else:
-                    value = _kernel(value, deconv="deconv" in name)
+                    value = _kernel(value, deconv="deconv" in name
+                                    and value.shape[:2] != (1, 1))
             else:
                 value = value.astype(np.float32)
             out[key] = torch.from_numpy(np.ascontiguousarray(value).copy())

@@ -730,6 +730,80 @@ def test_int8_forward_on_the_card_matches_the_cpu(float_convs, device):
     assert torch.equal(fused, plain)
 
 
+REWRITES = {"s2d": dict(stem_s2d=True), "d2s": dict(deconv_d2s=True),
+            "both": dict(stem_s2d=True, deconv_d2s=True)}
+
+
+@pytest.mark.parametrize("rewrite", sorted(REWRITES))
+@pytest.mark.parametrize("mode", ["folded", "int8", "int8_static"])
+def test_rewritten_forwards_on_the_card_match_the_plain_ones(mode, rewrite,
+                                                             device):
+    """The folded and int8 forwards (dynamic scales, and static ones
+    calibrated on the first image) with ``stem_s2d``, ``deconv_d2s`` and
+    both, in bf16 on the card, against the plain forms of the same mode on
+    the same weights: max abs < 2e-2, mean < 1e-3, the JAX package's bound
+    for this bf16 comparison (tests/test_pallas_ops.py:348-349). The int8
+    forwards launch the int8 conv's kernel 17 times, as the plain ones
+    do."""
+    from db_text_minimal_tpu_torch.models import DBTextModel
+    from db_text_minimal_tpu_torch.models import quant_infer as Q
+
+    model = DBTextModel(head_name="FusedDBHead")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    sd = model.state_dict()
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 128, 128, 3)
+                         .astype(np.float32) * 255 - 115).to(device)
+    kw = dict(skip=()) if mode.startswith("int8") else dict(
+        min_out_channels=10 ** 9)
+    outs = []
+    for flags in ({}, REWRITES[rewrite]):
+        qv = Q.tree_to(Q.prepare_quant_params(sd, **kw, **flags), device)
+        if mode == "int8_static":
+            qv = Q.calibrate_activation_scales(qv, [x[:1]])
+        I.reset_launches()
+        with torch.inference_mode():
+            outs.append(Q.quant_dbnet_forward(qv, x))
+        torch.cuda.synchronize()
+        assert I.LAUNCHES["int8_conv"] == (17 if mode != "folded" else 0)
+    gap = (outs[1] - outs[0]).abs()
+    assert outs[1].shape == (2, 128, 128, 2)
+    assert gap.max().item() < 2e-2 and gap.mean().item() < 1e-3
+
+
+def test_int8_stem_on_the_card_matches_the_cpu(device):
+    """The space-to-depth stem as an int8 conv (4x4, Cin 12, pad ((2, 1),
+    (2, 1)) by zero-padding the int8 input; thresholds lowered so that it
+    and the 64-channel convs are int8) with ``deconv_d2s``, the float
+    convs in f64: on the card against the CPU, every int8 activation equal
+    and the maps within 1e-6; the int8 conv's kernel takes the stem."""
+    from db_text_minimal_tpu_torch.models import DBTextModel
+    from db_text_minimal_tpu_torch.models import quant_infer as Q
+
+    model = DBTextModel(head_name="FusedDBHead")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    qv = Q.prepare_quant_params(model.state_dict(), skip=(), stem_s2d=True,
+                                deconv_d2s=True, min_out_channels=64,
+                                min_in_channels=1)
+    assert qv["params"]["backbone"]["conv1"]["kernel"].shape == (64, 4, 4, 12)
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 128, 128, 3)
+                         .astype(np.float32) * 255 - 115)
+    runs = []
+    for dev, tree in (("cpu", qv), (device, Q.tree_to(qv, device))):
+        inputs = []
+        I.reset_launches()
+        with torch.inference_mode():
+            out = Q.quant_dbnet_forward(tree, x.to(dev),
+                                        compute_dtype=torch.float64,
+                                        int8_inputs=inputs)
+        runs.append((out.cpu(), [q.cpu() for q in inputs],
+                     I.LAUNCHES["int8_conv"]))
+    (ref, ref_q, _), (got, got_q, launches) = runs
+    assert launches == len(got_q) == len(ref_q) > 17
+    assert got_q[0].shape == (2, 64, 64, 12)
+    assert all(torch.equal(a, b) for a, b in zip(got_q, ref_q))
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("cin,cout", [(77, 256), (256, 154), (192, 130)])
 def test_padded_int8_conv2d_on_the_card_matches_the_cpu(cin, cout, device):
     """Pruned widths leave K = 9*Cin or N = Cout off the multiples of 8
