@@ -8,9 +8,9 @@ Run from the repository root on a machine with a CUDA GPU::
 Phases, one output line each (or more), stopping at the first failure:
 
 1. build   - compile the CUDA kernels (csrc/cc.cu, csrc/int8_epilogue.cu,
-             csrc/int8_conv.cu and csrc/deform.cu, nvcc sm_90a), the host
-             geometry library and the Triton kernels K1 and K2
-             (ops/db_step_triton.py), in parallel.
+             csrc/int8_conv.cu, csrc/deform.cu and csrc/ohem.cu, nvcc
+             sm_90a), the host geometry library and the Triton kernels K1,
+             K2 and the DB tail (ops/db_step_triton.py), in parallel.
 2. kernels - hold P1 (csrc/int8_epilogue.cu) bit for bit against its plain
              version in both forms (f32 at the FPN output conv's 8x160x160
              x256, int8 at a layer-2 conv1's 8x80x80x128); the int8 conv
@@ -28,7 +28,16 @@ Phases, one output line each (or more), stopping at the first failure:
              (fast_boxes) against its run on the CPU, and K1, K2 forward
              and K2 backward at the training shapes (P and T of
              4x1x640x640, the backward's gradient at the element stride of
-             the NHWC output's last channel); time each and its plain
+             the NHWC output's last channel); the DB tail, forward and
+             backward, at the training step's 16x1x640x640 in bf16 (and
+             f32, checked), against its plain version (the composition it
+             replaces: casts, sigmoids, K2, the concatenation): the output
+             within 1e-6, dz bit-equal, the gradient at the strides the
+             step hands it over and contiguous; K10 (csrc/ohem.cu), OHEM's
+             top-k sum and its gradient, on the loss map of a seeded model's
+             bf16 train-mode forward at batch 16 and on tie-heavy maps: lo
+             bit-equal to the plain bisection's, the sum within 1e-5
+             relative, the gradient equal; time each and its plain
              version, and the rect and polygon drivers (K9 device_boxes,
              K7 device_poly_stats) on the card and on the CPU. Then K3 bit
              for bit against its plain version on its hard masks (full,
@@ -123,7 +132,8 @@ Phases, one output line each (or more), stopping at the first failure:
              (the full model's gaps beside), served folded and int8 in box
              mode (K3-K6, the int8 conv's kernel once per int8 conv); 3
              bf16 train steps of the
-             p50 model at batch 4 (K2 each step; checkpoints with the
+             p50 model at batch 4 (the DB tail and K10 each step, K2
+             never; checkpoints with the
              sidecar); the odd-keep int8 archive held as in export; the
              folded forward and handle() at batch 8, full against p50.
 7. polygon - the served batch's maps through DevicePolyRepresenter
@@ -137,10 +147,13 @@ Phases, one output line each (or more), stopping at the first failure:
              4, bf16 compute with f32 parameters and loss, true per-pixel
              OHEM, Adam at lr 0.005. Twelve steps of Trainer.train_epoch on
              one synthetic batch (numpy scenes, GT maps in the compact
-             layout); K2 forward and backward must launch once a step and
-             the loss must fall. The same in fp32 with TF32 off (the parity
+             layout); the DB tail's forward and backward and K10's select
+             and gradient must launch once a step, K2 never, and the loss
+             must fall. The same in fp32 with TF32 off (the parity
              configuration), and both at batch 16; each run timed and
-             profiled (busy share, top kernels). Then
+             profiled (busy share, top kernels, the tail's and K10's ms,
+             the loss's forward and backward alone: device ms and
+             kernels). Then
              Trainer.eval_epoch in rect mode on two test images (K3-K6 must
              launch), eval_epoch under the default configuration (polygon
              mode, on the host as in the JAX trainer) and the quality
@@ -158,7 +171,8 @@ Phases, one output line each (or more), stopping at the first failure:
              at batch 8 timed in both by CUDA events; deformable_resnet50
              and resnet18 + FPEM_FFM one fp32 forward on the card against
              the CPU (TF32 off, max abs 1e-4), three bf16 train steps at
-             batch 4 (K2 each step, finite losses, the offsets move under
+             batch 4 (the DB tail and K10 each step, K2 never, finite
+             losses, the offsets move under
              dcn_offset_lr_mult 0.1) and a step at batch 16 timed;
              DeformConv's share of deformable_resnet50's forward (batch 8)
              and train step (batch 16) by torch.profiler under
@@ -187,8 +201,9 @@ Phases, one output line each (or more), stopping at the first failure:
              images, seed 7) with the committed trace of cv2 5.0.0's text
              engine replayed (each image's GT held to the trace's hash),
              quality_bench.main for one epoch, in bf16, with
-             --reduction none --polygon --save_checkpoint (K2 in every
-             step; K3-K7 in the eval's four rows), then --eval_only
+             --reduction none --polygon --save_checkpoint (the DB tail
+             and K10 in every step, K2 never; K3-K7 in the eval's four
+             rows), then --eval_only
              --quant on the checkpoint (the int8 conv's kernel, K3-K6 in the
              device row); both reports must have the JAX report's keys and
              finite P/R/F. Logs the generation, train and eval times, each
@@ -221,7 +236,8 @@ Phases, one output line each (or more), stopping at the first failure:
              crops), its .pth loaded by a Trainer, ms a step; cli.train
              with --coordinator_address (NCCL, a group of one, the model in
              DistributedDataParallel) and --profile_dir on the quality set
-             (K2 in each of 16 steps, its kernels named in the trace), then
+             (the DB tail and K10 in each of 16 steps, K2 never, their
+             kernels named in the trace), then
              a bf16 step at batch 4 plain and in DDP; quality_bench
              --eval_only --dump_eval_dir on quality.ckpt.
 
@@ -263,6 +279,7 @@ from db_text_minimal_tpu_torch.ops import cc, geometry
 from db_text_minimal_tpu_torch.ops import db_step as D
 from db_text_minimal_tpu_torch.ops import deform as DF
 from db_text_minimal_tpu_torch.ops import int8 as I8
+from db_text_minimal_tpu_torch.ops import ohem as OH
 from db_text_minimal_tpu_torch.postprocess import (DeviceBoxRepresenter,
                                                    DevicePolyRepresenter,
                                                    SegDetectorRepresenter)
@@ -282,6 +299,8 @@ SRC = "db_text_minimal_tpu_torch/csrc/cc.cu"
 JAX_CC = "db_text_minimal_tpu/ops/pallas/cc.py"
 TRITON_SRC = "db_text_minimal_tpu_torch/ops/db_step_triton.py"
 JAX_DB_STEP = "db_text_minimal_tpu/ops/pallas/db_step.py"
+OHEM_SRC = "db_text_minimal_tpu_torch/csrc/ohem.cu"
+JAX_LOSSES = "db_text_minimal_tpu/losses.py"
 INT8_SRC = "db_text_minimal_tpu_torch/csrc/int8_epilogue.cu"
 DEFORM_SRC = "db_text_minimal_tpu_torch/csrc/deform.cu"
 JAX_DEFORM = "db_text_minimal_tpu/models/deform.py"
@@ -311,7 +330,9 @@ RECT_PATH = ("connected_components_8", "connected_components_4",
 POLY_PATH = ("connected_components_8", "connected_components_4",
              "compact_slots", "hole_stats", "bbox_stats", "pack_bits")
 KERNEL_IDS = {"fused_db_step": "K1", "db_step_forward": "K2",
-              "db_step_backward": "K2", "connected_components_8": "K3",
+              "db_step_backward": "K2", "db_tail_forward": "K2",
+              "db_tail_backward": "K2", "ohem_topk_sum": "K10",
+              "ohem_topk_grad": "K10", "connected_components_8": "K3",
               "connected_components_4": "K3",
               "connected_components_8_served": "K3",
               "connected_components_4_served": "K3", "compact_slots": "K4",
@@ -398,6 +419,35 @@ def check_launches(launches: dict, path: tuple, what: str) -> None:
     if missing or launches["compact_slots"] < 2:
         raise AssertionError(f"{what}: kernels never launched {missing}, "
                              f"launches {launches}")
+
+
+# the training step's kernels: the DB tail's forward and backward and
+# K10's select and gradient, once a step; K1 and K2 no longer on the path
+STEP_KERNELS = ("db_tail_forward", "db_tail_backward", "ohem_topk_sum",
+                "ohem_topk_grad")
+OFF_PATH = ("fused_db_step", "db_step_forward", "db_step_backward")
+
+
+def reset_step_launches() -> None:
+    D.reset_launches()
+    OH.reset_launches()
+
+
+def step_launches() -> dict:
+    return {**D.LAUNCHES, **OH.LAUNCHES}
+
+
+def check_step_launches(launches: dict, steps: int, what: str,
+                        evals: bool = False) -> None:
+    """Each kernel of STEP_KERNELS launched once a step, K10's select also
+    once an eval batch's loss where ``evals``; K1 and K2 never."""
+    once = [name for name in STEP_KERNELS
+            if not (evals and name == "ohem_topk_sum")]
+    if not (all(launches[name] == steps for name in once)
+            and launches["ohem_topk_sum"] >= steps
+            and not any(launches[name] for name in OFF_PATH)):
+        raise AssertionError(f"{what}: launches {launches} in {steps} "
+                             f"steps")
 
 
 def log(msg: str) -> None:
@@ -539,11 +589,16 @@ def db_step_maps():
 
 
 def build_triton() -> None:
-    """Compile K1 and K2 (forward, backward): Triton compiles a kernel at
-    its first launch, here at the training shapes."""
+    """Compile K1, K2 (forward, backward) and the DB tail (forward,
+    backward, bf16 and f32 inputs): Triton compiles a kernel at its first
+    launch, here at the training shapes."""
     p, t, grad = db_step_maps()
     D.fused_db_step(p[:, 0], t[:, 0])
     D.db_step_backward(grad, D.db_step_forward(p, t))
+    g = torch.cat([grad] * 3, 1)
+    for dtype in (torch.bfloat16, torch.float32):
+        D.db_tail_backward(g, p.to(dtype), t.to(dtype))
+        D.db_tail_forward(p.to(dtype), t.to(dtype))
     torch.cuda.synchronize()
 
 
@@ -554,14 +609,14 @@ def phase_build() -> None:
                 pool.submit(I8.load_library),
                 pool.submit(I8.load_library, "int8_conv"),
                 pool.submit(DF.load_library),
+                pool.submit(OH.load_library),
                 pool.submit(geometry.load_library),
                 pool.submit(build_triton)]
         for job in jobs:
             job.result()
-    log(f"build ok: cc.cu, int8_epilogue.cu, int8_conv.cu and deform.cu "
-        f"(nvcc sm_90a), "
-        f"geometry.cpp "
-        f"(g++) and K1, K2 forward and backward (Triton) in "
+    log(f"build ok: cc.cu, int8_epilogue.cu, int8_conv.cu, deform.cu and "
+        f"ohem.cu (nvcc sm_90a), geometry.cpp (g++) and K1, K2 forward and "
+        f"backward and the DB tail forward and backward (Triton) in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -1053,6 +1108,192 @@ def phase_db_step_kernels() -> list[dict]:
     log(f"db step kernels ok at {TRAIN_BATCH}x1x{SIZE}x{SIZE}; the "
         f"backward's gradient has element stride "
         f"{D.uniform_stride(grad)}")
+    return rows
+
+
+def step_inputs():
+    """One bf16 train-mode forward of a seeded resnet18 + FPN + DBHead on
+    text_batch(SEED, QUALITY_BATCH, SIZE) on the card: the head's two last
+    deconv outputs (the DB tail's inputs, (16, 1, 640, 640) bf16) and the
+    OHEM map and k of its loss (the BCE of P on the negatives, and
+    min(3 * positives, negatives))."""
+    from db_text_minimal_tpu_torch import losses as L
+
+    dev = torch.device("cuda")
+    model = DBTextModel(compute_dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    model.to(dev).train()
+    head, z = model.segmentation_head, {}
+    hooks = [getattr(head, name)[6].register_forward_hook(
+        lambda m, i, o, name=name: z.__setitem__(name, o.detach()))
+        for name in ("binarize", "thresh")]
+    batch = T.device_preprocess(T.to_device(
+        text_batch(SEED, QUALITY_BATCH, SIZE), dev))
+    with torch.no_grad():
+        preds = model(batch["img"])
+    for hook in hooks:
+        hook.remove()
+    gt, mask = batch["prob_map"], batch["supervision_mask"]
+    negative = (1.0 - gt) * mask
+    k = torch.minimum((gt * mask).sum() * 3.0, negative.sum())
+    values = (L._bce(preds[..., 0], gt) * negative).contiguous()
+    return z["binarize"], z["thresh"], values, k
+
+
+def replaced_row(row: dict, fn) -> None:
+    """The device ms and the device operations a call of ``fn``, the
+    composition the row's kernel replaced on the main path, cold."""
+    ms, _, ops = device_kernels(fn, 5)
+    row["replaced_device_ms"], row["replaced_ops"] = ms, ops
+    log(f"kernel {row['name']}: the composition it replaces {ms:.4f} ms "
+        f"on the card in {ops:.0f} operations")
+
+
+def check_k10(what: str, values: torch.Tensor,
+              k: torch.Tensor) -> tuple[float, float]:
+    """K10 against the plain bisection: lo bit-equal, the sum within 1e-5
+    relative to the size of its two terms (``ohem.sum_scale``: the kernel
+    sums in f64, torch in f32, and the terms cancel where values tie at
+    lo); returns the sum's gap and that tolerance."""
+    out, lo = OH.topk_select(values, k)
+    lo_p = OH.bisection_lo(values, k)
+    ref = OH.topk_sum_plain(values, k)
+    if not torch.equal(lo, lo_p):
+        raise AssertionError(f"ohem_topk_sum {what}: lo {lo.item()!r} "
+                             f"against the bisection's {lo_p.item()!r}")
+    err, tol = (abs(out.item() - ref.item()),
+                1e-5 * OH.sum_scale(values, lo_p, k))
+    if not err <= tol:
+        raise AssertionError(f"ohem_topk_sum {what}: sum {out.item()!r} "
+                             f"against {ref.item()!r}")
+    return err, tol
+
+
+def phase_tail_kernels() -> list[dict]:
+    """The training step's DB tail (forward, backward) and K10 (select,
+    gradient) at the step's shapes (batch 16 at 640x640), on the inputs of
+    a seeded model's bf16 forward. The tail within 1e-6 of its plain
+    version, the composition it replaces (the f32 casts and sigmoids, K2,
+    the concatenation; P and T are torch's sigmoids bit for bit), dz
+    bit-equal to that composition's autograd with the gradient at the
+    step's strides and contiguous, in bf16 and f32; K10's lo bit-equal to
+    the bisection's and its sum within 1e-5 of the size of its two terms
+    on the loss map and on tie-heavy maps (clamped BCE values, four
+    values, zeros, k of 0 and past the count), its gradient equal. Bytes:
+    the tail forward reads zb, zt and writes 12 B a pixel (16 B in bf16);
+    the backward reads the 12 B a
+    pixel of the output's gradient and zb, zt and writes dzb, dzt (20 B);
+    K10 reads the map once (4 B); its gradient reads it and writes one
+    (8 B)."""
+    zb, zt, values, k = step_inputs()
+    px, rows = zb.numel(), []
+    g = torch.randn((zb.shape[0], SIZE, SIZE, 3),
+                    generator=torch.Generator().manual_seed(SEED)).cuda()
+    g_step = g.permute(0, 3, 1, 2)       # as the step hands it over
+    for dtype in (torch.float32, torch.bfloat16):
+        b, t = zb.to(dtype), zt.to(dtype)
+        out, ref = D.db_tail_forward(b, t), D.db_tail_plain(b, t)
+        err = (out - ref).abs().max().item()
+        if not (err <= 1e-6 and torch.equal(out[:, :2], ref[:, :2])):
+            raise AssertionError(f"db_tail_forward {dtype}: max_abs_err "
+                                 f"{err}, P and T equal "
+                                 f"{torch.equal(out[:, :2], ref[:, :2])}")
+        leaf_b, leaf_t = b.clone().requires_grad_(), t.clone().requires_grad_()
+        for what, grad in (("step", g_step), ("contiguous",
+                                               g_step.contiguous())):
+            got = D.db_tail_backward(grad, b, t)
+            want = torch.autograd.grad(D.db_tail_plain(leaf_b, leaf_t),
+                                       (leaf_b, leaf_t), grad)
+            if not all(torch.equal(x, y) and x.stride() == y.stride()
+                       for x, y in zip(got, want)):
+                gaps = [(x.float() - y.float()).abs().max().item()
+                        for x, y in zip(got, want)]
+                raise AssertionError(f"db_tail_backward {dtype}, {what} "
+                                     f"gradient: dz not bit-equal or not "
+                                     f"in its layout, {gaps}")
+    log(f"db tail ok at {tuple(zb.shape)}: P and T equal, B within 1e-6, "
+        f"dz bit-equal in the composition's layout, bf16 and f32 inputs, "
+        f"the gradient at strides "
+        f"{g_step.stride()} and contiguous")
+
+    es = zb.element_size()
+    out, ref = D.db_tail_forward(zb, zt), D.db_tail_plain(zb, zt)
+    rows.append(kernel_row(
+        "db_tail_forward", "triton", TRITON_SRC,
+        f"{JAX_DB_STEP}:76", (out - ref).abs().max().item(), 1e-6,
+        lambda: D.db_tail_forward(zb, zt),
+        lambda: D.db_tail_plain(zb, zt), px * (2 * es + 12), px * 12))
+    replaced_row(rows[-1], lambda: D.db_tail_plain(zb, zt))
+    leaf_b, leaf_t = zb.clone().requires_grad_(), zt.clone().requires_grad_()
+    composed = D.db_tail_plain(leaf_b, leaf_t)
+
+    def composed_backward():
+        return torch.autograd.grad(composed, (leaf_b, leaf_t), g_step,
+                                   retain_graph=True)
+
+    err = max((x.float() - y.float()).abs().max().item() for x, y in zip(
+        D.db_tail_backward(g_step, zb, zt), composed_backward()))
+    rows.append(kernel_row(
+        "db_tail_backward", "triton", TRITON_SRC, f"{JAX_DB_STEP}:114", err,
+        0.0, lambda: D.db_tail_backward(g_step, zb, zt), composed_backward,
+        px * (12 + 4 * es), px * 20))
+    replaced_row(rows[-1], composed_backward)
+    for row in rows:
+        row["library_ms"] = None
+        row["library"] = "none (a)"
+        row["plain"] = ("the composition the tail replaces (f32 casts and "
+                        "sigmoids, K2, the concatenation; its autograd for "
+                        "the backward)")
+
+    # K10 on the loss map, then on tie-heavy maps
+    n = values.numel()
+    err, tol = check_k10("on the loss map", values, k)
+    gen = np.random.RandomState(SEED)
+    clamped = torch.from_numpy(np.where(
+        gen.rand(n) < 0.3, -np.log(np.float32(1e-7)), gen.rand(n) * 2.0)
+        .astype(np.float32)).cuda() * (values.view(-1) > 0)
+    four = torch.from_numpy(gen.choice(np.float32([0.0, 0.1053, 0.6931,
+                                                   16.118]), n)).cuda()
+    cases = [("clamped", clamped, k), ("four values", four, k),
+             ("four values, k 0", four, torch.zeros_like(k)),
+             ("four values, k past the count", four,
+              torch.full_like(k, n + 5.0)),
+             ("zeros", torch.zeros_like(values), k),
+             ("ragged and unaligned", values.view(-1)[1:100_002],
+              torch.full_like(k, 1234.5))]
+    for what, v, kv in cases:
+        check_k10(what, v, kv)
+    _, lo = OH.topk_select(values, k)
+    g0 = torch.tensor(1.0, device="cuda")
+    kk = OH.target_rank(k.item(), n)
+    rows.append(kernel_row(
+        "ohem_topk_sum", "cuda", OHEM_SRC, f"{JAX_LOSSES}:40", err, tol,
+        lambda: OH.topk_select(values, k),
+        lambda: OH.topk_sum_plain(values, k), n * 4, n * 4))
+    replaced_row(rows[-1], lambda: OH.topk_sum_plain(values, k))
+    flat = values.view(-1)
+    rows[-1]["library_ms"] = timed(
+        lambda: torch.topk(flat, kk).values.sum(), 5)
+    rows[-1]["library"] = (f"torch.topk(values.view(-1), {kk}).values.sum(),"
+                           f" kk read to the host first")
+    rows[-1]["k"], rows[-1]["kk"], rows[-1]["n"] = k.item(), kk, n
+    dv = OH.topk_grad(values, lo, g0)
+    leaf = values.clone().requires_grad_()
+    total = OH.topk_sum_plain(leaf, k)
+    (dv_p,) = torch.autograd.grad(total, leaf, retain_graph=True)
+    if not torch.equal(dv, dv_p):
+        raise AssertionError("ohem_topk_grad: not equal to the bisection's "
+                             "gradient")
+    rows.append(kernel_row(
+        "ohem_topk_grad", "cuda", OHEM_SRC, f"{JAX_LOSSES}:66", 0.0, 0.0,
+        lambda: OH.topk_grad(values, lo, g0),
+        lambda: g0 * (values > lo).to(torch.float32), n * 8, n * 2))
+    replaced_row(rows[-1], lambda: torch.autograd.grad(total, leaf,
+                                                       retain_graph=True))
+    log(f"K10 ok on the loss map of {tuple(values.shape)} (k {k.item()}, kk "
+        f"{kk}, lo {lo.item()!r}) and {len(cases)} tie-heavy cases: lo "
+        f"bit-equal, sums within 1e-5 of their terms' size, the gradient "
+        f"equal")
     return rows
 
 
@@ -2157,8 +2398,9 @@ def phase_prune(workdir: str, pth: str) -> dict:
     ``build_inference_forward`` with its sidecar: the folded forward in fp32
     against the pruned model in fp32 (atol 2e-4, JAX test_prune.py:186) on
     2 images; the folded and int8 handlers in box mode (K3-K6, and the int8
-    conv's kernel once per int8 conv); 3 bf16 train steps of the p50 model at batch 4 (K2
-    each step) whose checkpoints carry the sidecar; the odd-keep int8
+    conv's kernel once per int8 conv); 3 bf16 train steps of the p50
+    model at batch 4 (the DB tail and K10 each step, K2 never) whose
+    checkpoints carry the sidecar; the odd-keep int8
     archive held as in the export phase; the folded forward at batch N,
     full against p50, timed in turns."""
     request = [{"body": b} for b in synthetic_images()]
@@ -2229,12 +2471,11 @@ def phase_prune(workdir: str, pth: str) -> dict:
     trainer = T.Trainer(cfg, [batch] * PRUNE_STEPS,
                         [text_batch(SEED + 1, 1, SIZE)])
     state = trainer.resume_state(p50)
-    D.reset_launches()
+    reset_step_launches()
     state, history = trainer.fit(state, no_epochs=1)
     torch.cuda.synchronize()
-    k2 = dict(D.LAUNCHES)
-    if not (k2["db_step_forward"] == k2["db_step_backward"] == PRUNE_STEPS):
-        raise AssertionError(f"p50 train: K2 launches {k2}")
+    k2 = step_launches()
+    check_step_launches(k2, PRUNE_STEPS, "p50 train", evals=True)
     last = os.path.join(cfg.meta.root_dir, cfg.model.last_cp_path)
     if load_widths(last) != P50_WIDTHS:
         raise AssertionError(f"p50 train: {last} has no widths sidecar")
@@ -2242,7 +2483,7 @@ def phase_prune(workdir: str, pth: str) -> dict:
     if not all(np.isfinite(losses)):
         raise AssertionError(f"p50 train: losses {losses}")
     log(f"prune train ok: {PRUNE_STEPS} bf16 steps of the p50 model at "
-        f"batch {TRAIN_BATCH}, losses {[round(v, 4) for v in losses]}, K2 "
+        f"batch {TRAIN_BATCH}, losses {[round(v, 4) for v in losses]}, "
         f"launches {k2}, {os.path.basename(last)} with its sidecar")
 
     # the odd-keep int8 archive, padded GEMMs and all
@@ -2521,9 +2762,10 @@ def train_config(workdir: str, size: int, batch: int, device: str,
 def train_run(workdir: str, batch_size: int, dtype: str):
     """TRAIN_STEPS steps of Trainer.train_epoch at SIZE x SIZE on one
     synthetic batch of ``batch_size``, in ``dtype`` (the config's
-    ``parallel.compute_dtype``), then three more under the profiler. K2's
-    counts are set to 0 before the epoch and read after it. Returns (K2
-    launches, trainer, state)."""
+    ``parallel.compute_dtype``), then three more under the profiler, and
+    the loss's forward and backward alone on the step's preds. The step
+    kernels' counts are set to 0 before the epoch and read after it.
+    Returns (their launches, trainer, state)."""
     cfg = train_config(workdir, SIZE, batch_size, "cuda", dtype)
     cfg.metric.is_output_polygon = False     # rect-mode eval, on K3-K6
     batch = text_batch(SEED, batch_size, SIZE)
@@ -2544,12 +2786,12 @@ def train_run(workdir: str, batch_size: int, dtype: str):
     if state.model.compute_dtype != want:
         raise AssertionError(f"{dtype}: the model computes in "
                              f"{state.model.compute_dtype}")
-    D.reset_launches()
+    reset_step_launches()
     state, _, _, _ = trainer.train_epoch(state, 0)
     events.append(torch.cuda.Event(enable_timing=True))
     events[-1].record()
     torch.cuda.synchronize()
-    launches = dict(D.LAUNCHES)
+    launches = step_launches()
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     totals = [row["total_loss"] for row in trainer.loss_log]
     what = f"train ({dtype}, batch {batch_size})"
@@ -2559,16 +2801,12 @@ def train_run(workdir: str, batch_size: int, dtype: str):
                              f"{trainer.loss_log}")
     if len(totals) != TRAIN_STEPS or not np.mean(totals[-3:]) < totals[0]:
         raise AssertionError(f"{what}: the loss did not fall: {totals}")
-    if not (launches["db_step_forward"] == launches["db_step_backward"]
-            == TRAIN_STEPS and launches["fused_db_step"] == 0):
-        raise AssertionError(f"{what}: K2 launches {launches} in "
-                             f"{TRAIN_STEPS} steps")
+    check_step_launches(launches, TRAIN_STEPS, what)
     q25, med, q75 = (float(q) for q in np.percentile(step_ms[2:],
                                                      [25, 50, 75]))
     log(f"{what} ok: {TRAIN_STEPS} steps at {SIZE}x{SIZE}, total loss "
         f"{totals[0]:.4f} -> {np.mean(totals[-3:]):.4f} (mean of the last "
-        f"3); K2 launches {launches['db_step_forward']} forward, "
-        f"{launches['db_step_backward']} backward")
+        f"3); launches {json.dumps(launches)}")
     log(f"{what} timing: ms per step over the last 10 steps [q25, median, "
         f"q75] [{q25:.3f}, {med:.3f}, {q75:.3f}], "
         f"{batch_size * 1e3 / med:.2f} img/s; all steps ms "
@@ -2580,21 +2818,47 @@ def train_run(workdir: str, batch_size: int, dtype: str):
     device_batch = T.to_device(batch, torch.device("cuda"))
     busy_ms, by_name, _ = device_kernels(
         lambda: step(state, device_batch, LR), 3)
-    k2_ms = sum(v for k, v in by_name.items() if "_db_step_" in k)
+    tail_ms = sum(v for k, v in by_name.items() if "_db_tail_" in k)
+    k10_ms = sum(v for k, v in by_name.items() if "k10_" in k)
+    loss_ms, loss_ops = loss_profile(cfg, step(state, device_batch, LR)[3],
+                                     device_batch)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f"{what} profile: the card busy {busy_ms:.3f} ms per step "
         f"({100 * busy_ms / med:.2f} % of the median step; idle "
-        f"{100 * (1 - busy_ms / med):.2f} %); K2 forward + backward "
-        f"{k2_ms:.4f} ms = {100 * k2_ms / med:.4f} % of the step; top "
-        f"kernels ms per step "
+        f"{100 * (1 - busy_ms / med):.2f} %); the DB tail forward + "
+        f"backward {tail_ms:.4f} ms, K10 {k10_ms:.4f} ms = "
+        f"{100 * (tail_ms + k10_ms) / med:.4f} % of the step; the loss "
+        f"alone, forward + backward, {loss_ms:.4f} ms on the card in "
+        f"{loss_ops:.0f} kernels; top kernels ms per step "
         f"{json.dumps({k[:60]: round(v, 4) for k, v in top})}")
     return launches, trainer, state
 
 
+def loss_profile(cfg, preds: torch.Tensor, batch: dict
+                 ) -> tuple[float, float]:
+    """The training loss's forward and backward alone, on a step's preds
+    and its batch: device ms and device operations a call."""
+    from db_text_minimal_tpu_torch import losses as L
+
+    maps = T.device_preprocess(batch)
+    leaf = preds.detach().requires_grad_()
+
+    def loss():
+        out = L.db_loss(leaf, maps["prob_map"], maps["supervision_mask"],
+                        maps["thresh_map"], maps["text_area_map"],
+                        alpha=float(cfg.optimizer.alpha),
+                        **T._loss_settings(cfg))
+        torch.autograd.grad(out.total_loss, leaf)
+
+    ms, _, ops = device_kernels(loss, 3)
+    return ms, ops
+
+
 def phase_train(workdir: str) -> dict:
     """The default configuration (bf16) at batch 4 is the main path, whose
-    K2 launches the kernels line reports and whose state the evals below
-    take; then fp32 at batch 4 and both at batch 16, for their times."""
+    step kernels' launches the kernels line reports and whose state the
+    evals below take; then fp32 at batch 4 and both at batch 16, for their
+    times."""
     launches, trainer, state = train_run(workdir, TRAIN_BATCH, "bfloat16")
     for batch_size, dtype in ((TRAIN_BATCH, "float32"),
                               (QUALITY_BATCH, "bfloat16"),
@@ -2770,7 +3034,8 @@ def family_train(workdir: str, backbone: str, neck: str, batch_size: int,
                  steps: int, mult: float):
     """``steps`` bf16 steps of Trainer.train_epoch on one synthetic batch
     (SIZE², ``batch_size``), the offsets under ``dcn_offset_lr_mult``
-    ``mult``, an event before each step. Returns (K2 launches, step ms,
+    ``mult``, an event before each step. Returns (the step kernels'
+    launches, step ms,
     total losses, the largest move of an offset weight, trainer, state)."""
     cfg = train_config(workdir, SIZE, batch_size, "cuda")
     cfg.model.backbone, cfg.model.neck = backbone, neck
@@ -2788,12 +3053,12 @@ def family_train(workdir: str, backbone: str, neck: str, batch_size: int,
     state = trainer.init_state()
     before = {n: p.detach().clone() for n, p in
               state.model.named_parameters() if "offset_conv" in n}
-    D.reset_launches()
+    reset_step_launches()
     state, _, _, _ = trainer.train_epoch(state, 0)
     events.append(torch.cuda.Event(enable_timing=True))
     events[-1].record()
     torch.cuda.synchronize()
-    launches = dict(D.LAUNCHES)
+    launches = step_launches()
     params = dict(state.model.named_parameters())
     moved = max(((params[n].detach() - v).abs().max().item()
                  for n, v in before.items()), default=0.0)
@@ -2901,7 +3166,8 @@ def phase_families(workdir: str) -> dict:
     three bf16 train steps of two; a step at batch 16 timed; DeformConv's
     share; deformable_resnet18 (fp32) exported and served from its
     archive.
-    Returns the K3-K6 and K2 launches of the phase's runs."""
+    Returns the K3-K6 and the step kernels' launches of the phase's
+    runs."""
     from db_text_minimal_tpu_torch.cli.common import load_model
 
     t_phase = time.perf_counter()
@@ -3013,19 +3279,18 @@ def phase_families(workdir: str) -> dict:
             f"the card vs the CPU, max_abs_err {err:.3g} (tolerance "
             f"{FAMILY_TOL}), mean {(on_card - on_cpu).abs().mean():.3g}")
 
-    # training: three bf16 steps at batch 4 (K2 each step, finite losses,
-    # the offsets move); then a step at batch 16 timed, and profiled
+    # training: three bf16 steps at batch 4 (the tail and K10 each step,
+    # K2 never, finite losses, the offsets move); then a step at batch 16
+    # timed, and profiled
     train_launches = {}
     for backbone, neck in FAMILY_CHECK:
         name = f"{backbone}+{neck}"
         mult = 0.1 if backbone.startswith("deformable") else 1.0
         launches, _, totals, moved, _, _ = family_train(
             workdir, backbone, neck, TRAIN_BATCH, FAMILY_STEPS, mult)
-        if not (launches["db_step_forward"] == launches["db_step_backward"]
-                == FAMILY_STEPS and all(np.isfinite(totals))
-                and len(totals) == FAMILY_STEPS):
-            raise AssertionError(f"{name} train: K2 launches {launches}, "
-                                 f"losses {totals}")
+        check_step_launches(launches, FAMILY_STEPS, f"{name} train")
+        if not (all(np.isfinite(totals)) and len(totals) == FAMILY_STEPS):
+            raise AssertionError(f"{name} train: losses {totals}")
         if backbone.startswith("deformable") and not moved > 0:
             raise AssertionError(f"{name} train: the offsets did not move")
         train_launches[name] = launches
@@ -3035,7 +3300,7 @@ def phase_families(workdir: str) -> dict:
         med = float(np.median(step_ms[2:]))
         timing[name]["train_bf16_b16"] = med
         log(f"families train ok: {name}, {FAMILY_STEPS} bf16 steps at batch "
-            f"{TRAIN_BATCH}, total loss {[round(v, 4) for v in totals]}, K2 "
+            f"{TRAIN_BATCH}, total loss {[round(v, 4) for v in totals]}, "
             f"launches {launches}, largest offset move {moved:.3g} "
             f"(dcn_offset_lr_mult {mult}); a step at batch {QUALITY_BATCH}, "
             f"bf16, median of the last {FAMILY_TIMED_STEPS - 2} of "
@@ -3091,12 +3356,13 @@ def phase_families(workdir: str) -> dict:
 
 
 def reset_all_launches() -> None:
-    for module in (cc, D, I8, DF):
+    for module in (cc, D, I8, DF, OH):
         module.reset_launches()
 
 
 def all_launches() -> dict:
-    return {**cc.LAUNCHES, **D.LAUNCHES, **I8.LAUNCHES, **DF.LAUNCHES}
+    return {**cc.LAUNCHES, **D.LAUNCHES, **I8.LAUNCHES, **DF.LAUNCHES,
+            **OH.LAUNCHES}
 
 
 def check_report(what: str, report: dict, rows: tuple) -> None:
@@ -3122,7 +3388,8 @@ def phase_quality(workdir: str) -> dict:
     holds each image's GT to the trace's hash (the first 48 images of the
     committed benchmark's stream), ``quality_bench.main`` for one epoch at
     batch 16, in bf16, with
-    ``--reduction none --polygon --save_checkpoint`` (K2 in every step,
+    ``--reduction none --polygon --save_checkpoint`` (the DB tail and K10
+    in every step, K2 never,
     K3-K7 in the eval's rows), then ``--eval_only --quant`` on that
     checkpoint (the int8 conv's kernel, K3-K6 in the device row). The
     counts are set to 0 before each run and read after it. Also the host
@@ -3160,10 +3427,7 @@ def phase_quality(workdir: str) -> dict:
     torch.cuda.synchronize()
     launches = all_launches()
     steps = QUALITY_TRAIN // QUALITY_BATCH
-    if not (launches["db_step_forward"] == launches["db_step_backward"]
-            == steps):
-        raise AssertionError(f"quality: K2 launches {launches} in {steps} "
-                             f"steps")
+    check_step_launches(launches, steps, "quality", evals=True)
     check_launches(launches, RECT_PATH + POLY_PATH, "quality bench")
     check_report("quality bench", report,
                  ("host", "device", "host_poly", "device_poly"))
@@ -3631,10 +3895,11 @@ def tools_train(workdir: str) -> tuple[dict, dict]:
     the model in DistributedDataParallel; ``--profile_dir`` records the
     first
     epoch, then ``fit`` runs one more (in a group of one the model is in
-    DDP, without the collectives of a larger group). K2 must launch in
-    every step and the trace must name its Triton kernels. Then a bf16 step at batch 4 timed
-    plain, in DDP (a group of one) and plain again. Returns the row and
-    the K2 launches."""
+    DDP, without the collectives of a larger group). The DB tail and K10
+    must launch in every step, K2 never, and the trace must name their
+    kernels. Then a bf16 step at batch 4 timed plain, in DDP (a group of
+    one) and plain again. Returns the row and the step kernels'
+    launches."""
     import socket
 
     from db_text_minimal_tpu_torch.cli import train as train_cli
@@ -3666,20 +3931,20 @@ def tools_train(workdir: str) -> tuple[dict, dict]:
          "--process_id", "0", "--profile_dir", profile]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k2 = {k: D.LAUNCHES[k] for k in ("db_step_forward", "db_step_backward")}
+    k2 = step_launches()
     steps = 2 * (QUALITY_TRAIN // TRAIN_BATCH)
-    if not (k2["db_step_forward"] == k2["db_step_backward"] == steps
-            and np.isfinite(history[0]["train_loss"])):
-        raise AssertionError(f"cli.train DDP: K2 {k2} in {steps} steps, "
-                             f"history {history}")
+    check_step_launches(k2, steps, "cli.train DDP", evals=True)
+    if not np.isfinite(history[0]["train_loss"]):
+        raise AssertionError(f"cli.train DDP: history {history}")
     if torch.distributed.is_initialized():
         raise AssertionError("cli.train left its process group")
     (trace,) = os.listdir(profile)
     with open(os.path.join(profile, trace)) as f:
         names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
     named = {k: sum(k in n for n in names) for k in
-             ("_db_step_fwd_kernel", "_db_step_bwd_kernel", "nccl")}
-    if not (named["_db_step_fwd_kernel"] and named["_db_step_bwd_kernel"]):
+             ("_db_tail_fwd_kernel", "_db_tail_bwd_kernel", "k10_hist",
+              "k10_sum", "k10_grad", "nccl")}
+    if not all(v for k, v in named.items() if k != "nccl"):
         raise AssertionError(f"cli.train DDP: the trace names {named}")
     if not os.path.exists(os.path.join(root, "models", "last_cp.ckpt")):
         raise AssertionError("cli.train DDP: no last checkpoint")
@@ -3754,7 +4019,7 @@ def phase_tools(workdir: str, pth: str) -> dict:
     """The tools phase (see the module): the Flax fixture, cli/test,
     cli/webcam, backbone pretraining, the distributed cli.train and
     --dump_eval_dir. Returns the int8 kernels' launches in cli/test's int8
-    runs and K2's in the distributed cli.train."""
+    runs and the step kernels' in the distributed cli.train."""
     t_phase = time.perf_counter()
     model = load_model(FLAX_FIXTURE, dtype=torch.float32)
     with torch.inference_mode():
@@ -3775,7 +4040,8 @@ def phase_tools(workdir: str, pth: str) -> dict:
         f"(weights loaded each call) {json.dumps(cli_rows)}, int8 launches "
         f"{i8}; webcam {json.dumps(webcam_row)}; pretrain_backbone_dense "
         f"{json.dumps(pretrain_row)}; cli.train DDP "
-        f"{json.dumps(train_row)}, K2 {json.dumps(k2)}; --dump_eval_dir "
+        f"{json.dumps(train_row)}, launches {json.dumps(k2)}; "
+        f"--dump_eval_dir "
         f"{json.dumps(dump_row)}; the phase took "
         f"{time.perf_counter() - t_phase:.2f} s")
     return {"i8": i8, "k2": k2}
@@ -3852,7 +4118,7 @@ def main() -> int:
         phase_k5_sweep()
         poly_rows = phase_poly_kernels()
         phase_drivers()
-        db_rows = phase_db_step_kernels()
+        db_rows = phase_db_step_kernels() + phase_tail_kernels()
         d1_rows = phase_deform_kernels()
         with tempfile.TemporaryDirectory() as workdir:
             launches, pth, preds, flax_ms = phase_serve(workdir)
@@ -3891,8 +4157,9 @@ def main() -> int:
             row["launches_rewrites"] = rw_launches["cc"][kernel]
     for row in db_rows:
         row["launches"] = train_launches[row["name"]]
+        row["launches_per_step"] = row["launches"] / TRAIN_STEPS
         row["launches_ddp"] = tools["k2"].get(row["name"], 0)
-        row["launches_in"] = f"train: {TRAIN_STEPS} steps"
+        row["launches_in"] = f"train: {TRAIN_STEPS} bf16 steps at batch 4"
     for row in int8_rows + conv_rows:
         counter = (f"int8_conv_{row['form']}" if "form" in row
                    else row["name"])

@@ -2,13 +2,15 @@
 
 Port of ``db_text_minimal_tpu/losses.py``. ``reduction='none'`` is true
 per-pixel OHEM: the top ``negative_ratio × #positives`` negative pixels by
-loss, summed by a 34-round bisection for the k-th largest value
-(``_topk_sum``), not a sort. ``reduction='mean'`` reproduces the reference's
-degenerate form, the top-k of a constant map.
+loss, summed as JAX's 34-round bisection for the k-th largest value
+(``_topk_sum``), not a sort: on CUDA tensors by K10's kernels
+(``ops.ohem.topk_sum``, its lo bit-equal to the bisection's), on CPU
+tensors by the bisection itself. ``reduction='mean'`` reproduces the
+reference's degenerate form, the top-k of a constant map.
 
-Every count and bracket stays a 0-d tensor on the maps' device and each
-bisection round steps with ``torch.where``, so a train step reads nothing
-back to the host. All maps are (N, H, W); ``preds`` are NHWC.
+Every count and bracket stays a 0-d tensor on the maps' device, so a train
+step reads nothing back to the host. All maps are (N, H, W); ``preds`` are
+NHWC.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from .ops.ohem import topk_sum, topk_sum_plain
 
 
 def _bce(pred: torch.Tensor, gt: torch.Tensor,
@@ -26,24 +30,8 @@ def _bce(pred: torch.Tensor, gt: torch.Tensor,
     return -(gt * torch.log(p) + (1.0 - gt) * torch.log(1.0 - p))
 
 
-def _topk_sum(values: torch.Tensor, k: torch.Tensor,
-              iters: int = 34) -> torch.Tensor:
-    """Sum of the ``k`` largest entries of a non-negative map, ``k`` a 0-d
-    f32 tensor. Bisects for the k-th largest value t on the bracket
-    ±max(max, 1) with ``count(values > mid) >= k``, then takes the
-    tie-corrected sum Σ values·[values > t] + t·(k − count(values > t)),
-    ties at t counted fractionally. The gradient is 1 on the selected
-    entries; t is detached."""
-    sg = values.detach()
-    hi = torch.clamp(sg.max(), min=1.0)
-    lo = -1.0 * hi
-    for _ in range(iters):
-        mid = 0.5 * (lo + hi)
-        keep_lo = (sg > mid).sum() >= k
-        lo, hi = torch.where(keep_lo, mid, lo), torch.where(keep_lo, hi, mid)
-    above = (sg > lo).to(values.dtype)
-    cnt = above.sum()
-    return (values * above).sum() + lo * (k - cnt)
+# the plain bisection (the CPU path and the card's yardstick)
+_topk_sum = topk_sum_plain
 
 
 def ohem_balance_bce(pred: torch.Tensor, gt: torch.Tensor,
@@ -63,7 +51,7 @@ def ohem_balance_bce(pred: torch.Tensor, gt: torch.Tensor,
     else:
         loss = _bce(pred, gt)
         positive_sum = (loss * positive).sum()
-        negative_sum = _topk_sum(loss * negative, no_negative)
+        negative_sum = topk_sum(loss * negative, no_negative)
     return (positive_sum + negative_sum) / (no_positive + no_negative + eps)
 
 

@@ -9,14 +9,17 @@ pruned neck output does not shrink the head with it (JAX head.py:36-40). ``Fused
 conv and is weight-compatible through ``fuse_db_head_params``; it is an
 inference form and refuses train mode, as the JAX version asserts.
 
-In train mode ``DBHead`` returns (P, T, B̂) with B̂ = σ(k(P − T)) through
-kernel K2 (``ops.db_step.db_step``, head.py:76-84).
+In train mode ``DBHead`` returns (P, T, B̂) with B̂ = σ(k(P − T))
+(head.py:54-57,76-84) through the fused tail ``ops.db_step.db_tail``: the
+branches' last deconv outputs go in, before their ``Sigmoid32`` (which
+stays at index 7, so the keys do not change), and the two float32
+sigmoids, B̂ and the concatenation come out of one kernel, their backward
+out of another.
 
 In a bfloat16 model (``layers``) the convs and deconvs compute in bfloat16
 and the BNs in float32; the last deconv's bfloat16 output goes to a float32
-sigmoid (JAX head.py:57,121), so P and T, and K2's inputs and output, are
-float32 in every compute dtype: ``ops.db_step`` and its Triton kernels see
-the maps they saw in float32.
+sigmoid (JAX head.py:57,121), so P and T, and B̂, are float32 in every
+compute dtype.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.db_step import db_step
+from ..ops.db_step import db_tail
 from .layers import Conv2d, ConvTranspose2d, Sigmoid32, batch_norm
 
 
@@ -51,11 +54,10 @@ class DBHead(nn.Module):
         self.thresh = _branch(in_channels, width, False)
 
     def forward(self, x):
-        shrink, threshold = self.binarize(x), self.thresh(x)
         if self.training:
-            return torch.cat([shrink, threshold,
-                              db_step(shrink, threshold, self.k)], dim=1)
-        return torch.cat([shrink, threshold], dim=1)
+            return db_tail(self.binarize[:-1](x), self.thresh[:-1](x),
+                           self.k)
+        return torch.cat([self.binarize(x), self.thresh(x)], dim=1)
 
 
 class FusedDBHead(nn.Module):

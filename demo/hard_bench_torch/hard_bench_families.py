@@ -10,7 +10,10 @@ named by ``--rows`` (the first two by default):
   ``--dcn_offset_lr_mult 1.0`` (as the JAX row);
 - ``metrics_fpem_bf16``: resnet18 + FPEM_FFM;
 - ``metrics_dcn_lrmult0.1_bf16``: deformable_resnet18 + FPN at
-  ``--dcn_offset_lr_mult 0.1``.
+  ``--dcn_offset_lr_mult 0.1``;
+- ``metrics_scratch10_bf16``: the flagship, resnet18 + FPN, with
+  ``--polygon`` (its polygon rows too), as
+  ``metrics_scratch10_bf16.json`` was made.
 
 Each row runs at each trainer seed of ``--seeds`` (42 by default, the
 report ``<row><tag>.json``; another seed's ``<row>_seed<S><tag>.json``).
@@ -26,6 +29,8 @@ each step's wall seconds go to ``--out``; data and checkpoints go to
         --rows metrics_dcn_bf16,metrics_dcn_lrmult0.1_bf16 --tag _d1
     python demo/hard_bench_torch/hard_bench_families.py --out tmp/seeds \
         --rows metrics_dcn_bf16 --seeds 1,2,3 --offsets
+    python demo/hard_bench_torch/hard_bench_families.py --out tmp/flag \
+        --rows metrics_scratch10_bf16 --seeds 42,1,2,3 --tag _k10
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ ROWS = {"metrics_dcn_bf16": ["--backbone", "deformable_resnet18",
                              "--dcn_offset_lr_mult", "1.0"],
         "metrics_fpem_bf16": ["--neck", "FPEM_FFM"],
         "metrics_dcn_lrmult0.1_bf16": ["--backbone", "deformable_resnet18",
-                                       "--dcn_offset_lr_mult", "0.1"]}
+                                       "--dcn_offset_lr_mult", "0.1"],
+        "metrics_scratch10_bf16": ["--polygon"]}
 
 
 def main() -> int:

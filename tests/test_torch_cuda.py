@@ -1,12 +1,16 @@
 """The kernels on the card against their plain PyTorch versions: K3-K8,
-P1, the int8 conv and D1 forward and backward (CUDA) and K1, K2 forward and K2 backward
-(Triton); the int8 forward on the card against the CPU.
+P1, the int8 conv, D1 forward and backward and K10, OHEM's top-k select
+(CUDA), and K1, K2 forward and K2 backward and the DB head's train-mode
+tail, forward and backward (Triton); the int8 forward on the card against
+the CPU.
 
 Needs an NVIDIA GPU, nvcc and Triton; skipped elsewhere. This file imports no JAX,
 so it runs on the GPU machine, which has none, without the repo's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ from db_text_minimal_tpu_torch.ops import cc
 from db_text_minimal_tpu_torch.ops import db_step as D
 from db_text_minimal_tpu_torch.ops import deform as DF
 from db_text_minimal_tpu_torch.ops import int8 as I
+from db_text_minimal_tpu_torch.ops import ohem as OH
 from torch_scenes import K3_SWEEP, SCENES, k3_sweep_mask, rotated_bars
 
 pytestmark = pytest.mark.cuda
@@ -488,6 +493,197 @@ def test_db_step_autograd_on_the_card(device):
     torch.testing.assert_close(gt, rt, rtol=0, atol=1e-5)
 
 
+def _tail_inputs(device, dtype, shape=(4, 1, 640, 640), seed=5):
+    """The head's last deconv outputs as the step gives them (N, 1, H, W),
+    with sigmoids saturated at both ends, and the output's gradient as the
+    step hands it over: the (N, 3, H, W) view of an NHWC tensor."""
+    g = torch.Generator().manual_seed(seed)
+    zb = torch.randn(shape, generator=g) * 4
+    zt = torch.randn(shape, generator=g) * 4
+    ends = min(4, zb.numel())
+    zb.view(-1)[:ends] = torch.tensor([0.0, 100.0, -100.0, 1e-30])[:ends]
+    n, _, h, w = shape
+    grad = torch.randn((n, h, w, 3), generator=g).permute(0, 3, 1, 2)
+    return zb.to(dtype).to(device), zt.to(dtype).to(device), grad.to(device)
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 640, 640), (3, 1, 33, 65),
+                                   (1, 1, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_db_tail_matches_the_composition_it_replaces(shape, dtype, device):
+    """The tail's forward against its plain version (f32 casts and
+    sigmoids, K2, the concatenation): P and T equal, B̂ within 1e-6; its
+    backward bit-equal to that composition's autograd with the gradient at
+    the step's strides, contiguous, and in a layout it copies first, and
+    in the composition's layout for the first two."""
+    zb, zt, grad = _tail_inputs(device, dtype, shape)
+    D.reset_launches()
+    out = D.db_tail_forward(zb, zt, 50.0)
+    ref = D.db_tail_plain(zb, zt, 50.0)
+    assert D.LAUNCHES["db_tail_forward"] == 1
+    assert out.shape == ref.shape and out.permute(0, 2, 3, 1).is_contiguous()
+    assert torch.equal(out[:, :2], ref[:, :2])
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+    leaf_b, leaf_t = zb.clone().requires_grad_(), zt.clone().requires_grad_()
+    composed = D.db_tail_plain(leaf_b, leaf_t, 50.0)
+    for name, layout in (("step", grad), ("contiguous", grad.contiguous()),
+                         ("transposed", grad.transpose(2, 3).contiguous()
+                          .transpose(2, 3))):
+        want = torch.autograd.grad(composed, (leaf_b, leaf_t), layout,
+                                   retain_graph=True)
+        D.reset_launches()
+        got = D.db_tail_backward(layout, zb, zt, 50.0)
+        assert D.LAUNCHES["db_tail_backward"] == 1
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and torch.equal(a, b)
+            # the layout the composition gives the deconv's backward (which
+            # follows a transposed gradient's; the tail's is contiguous)
+            assert name == "transposed" or a.stride() == b.stride()
+
+
+def test_db_tail_trains_the_head_on_the_card(device):
+    """A train-mode DBHead on the card: the tail's kernels once each, K2
+    never; the same output as the head on the CPU (fp32, TF32 off) within
+    1e-5, and the same gradients within 1e-4 of the largest of them (sums
+    of 3,200 products in cuDNN's order and the CPU's; the conv biases
+    before a train-mode BN have a true gradient of 0 and read that noise
+    alone)."""
+    from db_text_minimal_tpu_torch.models.head import DBHead
+
+    torch.manual_seed(0)
+    head = DBHead(64, 16).train()
+    x = torch.randn(2, 64, 40, 40)
+    runs = []
+    for dev in (torch.device("cpu"), device):
+        model = copy.deepcopy(head).to(dev)
+        xd = x.to(dev).detach().requires_grad_()
+        D.reset_launches()
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            out = model(xd)
+            (out * out.detach()).sum().backward()
+        if dev.type == "cuda":
+            assert (D.LAUNCHES["db_tail_forward"]
+                    == D.LAUNCHES["db_tail_backward"] == 1)
+            assert not (D.LAUNCHES["db_step_forward"]
+                        or D.LAUNCHES["db_step_backward"])
+        runs.append([out, xd.grad] + [p.grad for p in model.parameters()])
+    torch.testing.assert_close(runs[1][0].cpu(), runs[0][0], rtol=0,
+                               atol=1e-5)
+    scale = max(a.abs().max().item() for a in runs[0][1:])
+    for a, b in zip(runs[0][1:], runs[1][1:]):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4 * scale)
+
+
+def _ohem_maps(device, n=4 * 640 * 640):
+    """Maps of tied values: clamped BCE at -log(1e-7) on 30 % of the
+    pixels, four values, and zeros."""
+    rs = np.random.RandomState(11)
+    clamped = np.where(rs.rand(n) < 0.3, -np.log(np.float32(1e-7)),
+                       rs.rand(n) * 2).astype(np.float32)
+    four = rs.choice(np.float32([0.0, 0.1053, 0.6931, 16.118]), n)
+    return {"clamped": torch.from_numpy(clamped).to(device),
+            "four": torch.from_numpy(four).to(device),
+            "zeros": torch.zeros(n, device=device),
+            "odd": torch.from_numpy(rs.rand(1001).astype(np.float32)
+                                    ).to(device)}
+
+
+def _hold_k10(values, k):
+    OH.reset_launches()
+    out, lo = OH.topk_select(values, k)
+    assert OH.LAUNCHES["ohem_topk_sum"] == 1
+    lo_p = OH.bisection_lo(values, k)
+    assert torch.equal(lo, lo_p), (lo.item(), lo_p.item())
+    ref = OH.topk_sum_plain(values, k).item()
+    assert abs(out.item() - ref) <= 1e-5 * OH.sum_scale(values, lo_p, k)
+
+
+@pytest.mark.parametrize("k", [0.0, 1.0, 1234.5, 383_999.0, 384_000.0,
+                               1e6, 1_638_400.0, 2e6])
+@pytest.mark.parametrize("name", ["clamped", "four", "zeros", "odd"])
+def test_topk_select_gives_the_bisection_lo(name, k, device):
+    """lo bit-equal to the bisection's, the sum within 1e-5 of the size of
+    its two terms (they cancel where values tie at lo: f64 against torch's
+    f32), on tie-heavy maps, with k of 0, inside a run of ties, at and past
+    the count."""
+    values = _ohem_maps(device)[name]
+    _hold_k10(values, torch.tensor(k, device=device))
+    # an unaligned start (the scalar path)
+    _hold_k10(values[1:], torch.tensor(min(k, 500.0), device=device))
+
+
+def test_topk_select_on_a_train_step_loss_map(device):
+    """The OHEM map of a full-width model's bf16 train-mode forward at
+    640x640 (a seeded resnet18 + FPN + DBHead): lo bit-equal, the sum
+    within 1e-5 of its terms' size, the gradient equal to the
+    bisection's."""
+    from db_text_minimal_tpu_torch import losses as L
+    from db_text_minimal_tpu_torch.data.scenes import text_batch
+    from db_text_minimal_tpu_torch.models import DBTextModel
+    from db_text_minimal_tpu_torch.train import trainer as T
+
+    model = DBTextModel(compute_dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(device).train()
+    batch = T.device_preprocess(T.to_device(text_batch(0, 2, 640), device))
+    with torch.no_grad():
+        preds = model(batch["img"])
+    gt, mask = batch["prob_map"], batch["supervision_mask"]
+    negative = (1.0 - gt) * mask
+    k = torch.minimum((gt * mask).sum() * 3.0, negative.sum())
+    values = (L._bce(preds[..., 0], gt) * negative).contiguous()
+    _hold_k10(values, k)
+    leaf = values.clone().requires_grad_()
+    (got,) = torch.autograd.grad(OH.topk_sum(leaf, k), leaf)
+    assert OH.LAUNCHES["ohem_topk_grad"] == 1
+    leaf_p = values.clone().requires_grad_()
+    (want,) = torch.autograd.grad(OH.topk_sum_plain(leaf_p, k), leaf_p)
+    assert torch.equal(got, want)
+
+
+def test_train_step_launches_the_tail_and_k10(device):
+    """One bf16 train step of the default configuration at 640x640, batch
+    2: the tail's forward and backward and K10's select and gradient once
+    each, K1 and K2 never."""
+    from db_text_minimal_tpu_torch.config import default_config
+    from db_text_minimal_tpu_torch.data.scenes import text_batch
+    from db_text_minimal_tpu_torch.train import trainer as T
+
+    cfg = default_config()
+    cfg.logging.logger_file = None
+    cfg.hps.img_size, cfg.hps.batch_size = 640, 2
+    state = T.Trainer(cfg).init_state()
+    batch = T.to_device(text_batch(0, 2, 640), device)
+    step = T.build_train_step(cfg)
+    step(state, batch, 0.005)
+    D.reset_launches()
+    OH.reset_launches()
+    _, out, _, _ = step(state, batch, 0.005)
+    torch.cuda.synchronize()
+    assert np.isfinite(out.total_loss.item())
+    assert D.LAUNCHES == {"fused_db_step": 0, "db_step_forward": 0,
+                          "db_step_backward": 0, "db_tail_forward": 1,
+                          "db_tail_backward": 1}
+    assert OH.LAUNCHES == {"ohem_topk_sum": 1, "ohem_topk_grad": 1}
+
+
+def test_cuda_tensors_never_reach_a_plain_version(device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("db_tail_plain", "db_tail_backward_plain",
+                 "db_step_forward_plain", "db_step_backward_plain"):
+        monkeypatch.setattr(D, name, refuse)
+    for name in ("topk_sum_plain", "bisection_lo"):
+        monkeypatch.setattr(OH, name, refuse)
+    zb, zt, _ = _tail_inputs(device, torch.bfloat16, (2, 1, 64, 64))
+    zb.requires_grad_()
+    D.db_tail(zb, zt).sum().backward()
+    v = torch.rand(4096, device=device).requires_grad_()
+    OH.topk_sum(v, torch.tensor(100.0, device=device)).backward()
+    assert zb.grad is not None and v.grad is not None
+
+
 def _epilogue_inputs(m, c, device, seed=0):
     """int32 accumulators over the range of a 3x3 conv of 256 int8
     channels (|acc| <= 2304 * 127^2 < 2^26), scales and biases as a
@@ -952,7 +1148,7 @@ def test_deform_conv_on_the_card_matches_the_cpu(stride, device):
     results = []
     for dev in (device, torch.device("cpu")):
         conv.to(dev).zero_grad()
-        xd = x.to(dev).requires_grad_()
+        xd = x.to(dev).detach().requires_grad_()
         out = conv(xd)
         (out * upstream.to(dev)).sum().backward()
         results.append([t.detach().cpu() for t in (

@@ -21,11 +21,13 @@ def _port_sources():
     yield os.path.join(_REPO, "chip_smoke.py")
     yield os.path.join(_REPO, "compare_kernels.py")
     yield os.path.join(_REPO, "compare_int8.py")
+    yield os.path.join(_REPO, "compare_train.py")
 
 
 def test_port_imports_with_jax_blocked():
-    """Every module of the port, chip_smoke.py, compare_kernels.py and
-    compare_int8.py import in a process where jax, flax, optax and the JAX package cannot
+    """Every module of the port, chip_smoke.py, compare_kernels.py,
+    compare_int8.py and compare_train.py import in a process where jax,
+    flax, optax and the JAX package cannot
     be imported (this process already holds jax, so the check runs in a
     subprocess)."""
     snippet = """
@@ -34,7 +36,8 @@ for name in ("jax", "jaxlib", "flax", "optax", "db_text_minimal_tpu"):
     sys.modules[name] = None
 import db_text_minimal_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for name in names + ["chip_smoke", "compare_kernels", "compare_int8"]:
+for name in names + ["chip_smoke", "compare_kernels", "compare_int8",
+                     "compare_train"]:
     importlib.import_module(name)
 print(" ".join(names))
 print(len(names))
@@ -53,9 +56,9 @@ print(len(names))
                    "utils.visualize", "utils.profiling", "cli.test",
                    "cli.webcam", "cli.pretrain_backbone",
                    "train.backbone_pretrain", "train.flax_msgpack",
-                   "parallel", "ops.deform", "ops.int8"):
+                   "parallel", "ops.deform", "ops.int8", "ops.ohem"):
         assert f"db_text_minimal_tpu_torch.{module}" in names
-    assert int(count) >= 67
+    assert int(count) >= 69
 
 
 def test_port_sources_name_no_jax_import():
