@@ -35,9 +35,10 @@ Phases, one output line each (or more), stopping at the first failure:
              within 1e-6, dz bit-equal, the gradient at the strides the
              step hands it over and contiguous; K10 (csrc/ohem.cu), OHEM's
              top-k sum and its gradient, on the loss map of a seeded model's
-             bf16 train-mode forward at batch 16 and on tie-heavy maps: lo
-             bit-equal to the plain bisection's, the sum within 1e-5
-             relative, the gradient equal; time each and its plain
+             bf16 train-mode forward at batch 16, on tie-heavy maps and on
+             a 32x640x640 map: lo bit-equal to the plain bisection's, the
+             sum within 1e-5 relative, the select one device operation a
+             call, the gradient equal; time each and its plain
              version, and the rect and polygon drivers (K9 device_boxes,
              K7 device_poly_stats) on the card and on the CPU. Then K3 bit
              for bit against its plain version on its hard masks (full,
@@ -1178,8 +1179,10 @@ def phase_tail_kernels() -> list[dict]:
     bit-equal to that composition's autograd with the gradient at the
     step's strides and contiguous, in bf16 and f32; K10's lo bit-equal to
     the bisection's and its sum within 1e-5 of the size of its two terms
-    on the loss map and on tie-heavy maps (clamped BCE values, four
-    values, zeros, k of 0 and past the count), its gradient equal. Bytes:
+    on the loss map, on tie-heavy maps (clamped BCE values, four values,
+    zeros, k of 0 and past the count) and on a 32x640x640 map, one device
+    operation a select (the clamped, four-value and large maps timed
+    too), its gradient equal. Bytes:
     the tail forward reads zb, zt and writes 12 B a pixel (16 B in bf16);
     the backward reads the 12 B a
     pixel of the output's gradient and zb, zt and writes dzb, dzt (20 B);
@@ -1254,13 +1257,16 @@ def phase_tail_kernels() -> list[dict]:
         .astype(np.float32)).cuda() * (values.view(-1) > 0)
     four = torch.from_numpy(gen.choice(np.float32([0.0, 0.1053, 0.6931,
                                                    16.118]), n)).cuda()
+    # 32x640x640: more than the grid's shared memory holds (52 MB)
+    large = torch.cat([values.view(-1), clamped])
     cases = [("clamped", clamped, k), ("four values", four, k),
              ("four values, k 0", four, torch.zeros_like(k)),
              ("four values, k past the count", four,
               torch.full_like(k, n + 5.0)),
              ("zeros", torch.zeros_like(values), k),
              ("ragged and unaligned", values.view(-1)[1:100_002],
-              torch.full_like(k, 1234.5))]
+              torch.full_like(k, 1234.5)),
+             ("32x640x640", large, 2 * k)]
     for what, v, kv in cases:
         check_k10(what, v, kv)
     _, lo = OH.topk_select(values, k)
@@ -1270,6 +1276,22 @@ def phase_tail_kernels() -> list[dict]:
         "ohem_topk_sum", "cuda", OHEM_SRC, f"{JAX_LOSSES}:40", err, tol,
         lambda: OH.topk_select(values, k),
         lambda: OH.topk_sum_plain(values, k), n * 4, n * 4))
+    rows[-1]["device_ops"] = device_kernels(
+        lambda: OH.topk_select(values, k), 20)[2]
+    if rows[-1]["device_ops"] != 1:
+        raise AssertionError(f"ohem_topk_sum: {rows[-1]['device_ops']} "
+                             f"device operations a call, not 1")
+    # the tie-heavy maps and the large one, cold: device ms, card ms and
+    # the bound (one read)
+    rows[-1]["other_maps"] = {}
+    for what, v, kv in (cases[0], cases[1], cases[-1]):
+        dev_ms, _, ops = device_kernels(lambda: OH.topk_select(v, kv), 20)
+        rows[-1]["other_maps"][what] = {
+            "device_ms": dev_ms, "device_ops": ops,
+            "ms": timed(lambda: OH.topk_select(v, kv), 20),
+            "bound_ms": bound(v.numel() * 4, v.numel())[0]}
+    log(f"kernel ohem_topk_sum on other maps: "
+        f"{json.dumps(rows[-1]['other_maps'])}")
     replaced_row(rows[-1], lambda: OH.topk_sum_plain(values, k))
     flat = values.view(-1)
     rows[-1]["library_ms"] = timed(
@@ -1291,9 +1313,9 @@ def phase_tail_kernels() -> list[dict]:
     replaced_row(rows[-1], lambda: torch.autograd.grad(total, leaf,
                                                        retain_graph=True))
     log(f"K10 ok on the loss map of {tuple(values.shape)} (k {k.item()}, kk "
-        f"{kk}, lo {lo.item()!r}) and {len(cases)} tie-heavy cases: lo "
-        f"bit-equal, sums within 1e-5 of their terms' size, the gradient "
-        f"equal")
+        f"{kk}, lo {lo.item()!r}), {len(cases) - 1} tie-heavy cases and a "
+        f"32x640x640 map: lo bit-equal, sums within 1e-5 of their terms' "
+        f"size, one device operation a select, the gradient equal")
     return rows
 
 
@@ -3942,8 +3964,8 @@ def tools_train(workdir: str) -> tuple[dict, dict]:
     with open(os.path.join(profile, trace)) as f:
         names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
     named = {k: sum(k in n for n in names) for k in
-             ("_db_tail_fwd_kernel", "_db_tail_bwd_kernel", "k10_hist",
-              "k10_sum", "k10_grad", "nccl")}
+             ("_db_tail_fwd_kernel", "_db_tail_bwd_kernel", "k10_select",
+              "k10_grad", "nccl")}
     if not all(v for k, v in named.items() if k != "nccl"):
         raise AssertionError(f"cli.train DDP: the trace names {named}")
     if not os.path.exists(os.path.join(root, "models", "last_cp.ckpt")):

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Time chosen device postprocess kernels of two checkouts in turns on one
-NVIDIA GPU.
+"""Time chosen device kernels of two checkouts in turns on one NVIDIA GPU.
 
 Run from the repository root, with another checkout of the repository
 (for example the parent commit, unpacked by ``git archive``)::
 
-    python3 compare_kernels.py OTHER_CHECKOUT [--kernels k4,k6,k5,k7] [--turns 2]
+    python3 compare_kernels.py OTHER_CHECKOUT [--kernels k4,k6,k5,k7,k10] [--turns 2]
 
 The kernels are K4 (``ops/cc.compact_slots``, on the 8-connected
 foreground's labels), K6 (``ops/cc.hole_stats``), K5
 (``ops/cc.rotated_boxes``) and K7: its stats (``ops/cc.bbox_stats``, and
 ``ops/cc.poly_stats`` where the checkout has it) and its bit-pack
-(``ops/cc.pack_bits``, on the 640-wide mask and on its 100x100 corner).
+(``ops/cc.pack_bits``, on the 640-wide mask and on its 100x100 corner);
+K10 is OHEM's top-k select (``ops/ohem.topk_select``) on the loss map of
+a seeded model's bf16 train-mode forward at batch 16, 640x640
+(``chip_smoke.step_inputs``), on maps of the same size with clamped-BCE
+ties and of four values, and on a 32x640x640 map (the loss map and the
+clamped map one after the other), each held to the bisection (lo
+bit-equal, the sum within 1e-5 of its two terms' size).
 The runs alternate, the other checkout first:
 other, this, this, other, ... Each run is a process of its own, started in
 the root of its checkout, so that it imports that checkout's package and
@@ -43,7 +48,7 @@ import subprocess
 import sys
 import tempfile
 
-KERNELS = ("k4", "k6", "k5", "k7")
+KERNELS = ("k4", "k6", "k5", "k7", "k10")
 # the rows that k7 stands for; poly_stats only where the checkout has it
 K7_ROWS = ("bbox_stats", "poly_stats", "pack_bits", "pack_bits_w100")
 
@@ -112,6 +117,52 @@ def device_ops(fn, reps: int) -> tuple[float, float]:
             len(events) / reps)
 
 
+def k10_maps(S, values, k) -> dict:
+    """K10's inputs: the step's loss map and k, maps of its size with
+    clamped-BCE ties (30 % at -log(1e-7) where the loss map is nonzero)
+    and of four values, and a 32x640x640 map."""
+    import numpy as np
+    import torch
+
+    n = values.numel()
+    gen = np.random.RandomState(S.SEED)
+    clamped = torch.from_numpy(np.where(
+        gen.rand(n) < 0.3, -np.log(np.float32(1e-7)), gen.rand(n) * 2.0)
+        .astype(np.float32)).cuda() * (values.view(-1) > 0)
+    four = torch.from_numpy(gen.choice(np.float32([0.0, 0.1053, 0.6931,
+                                                   16.118]), n)).cuda()
+    return {"loss": (values, k), "clamped": (clamped, k),
+            "four values": (four, k),
+            "32x640x640": (torch.cat([values.view(-1), clamped]), 2 * k)}
+
+
+def measure_k10(S) -> dict:
+    """K10's select on each of ``k10_maps``: its error against the
+    bisection, the card's time per call and its split by launch from
+    torch.profiler, device operations a call, and the time per call from
+    CUDA events, each call after an L2 flush."""
+    from db_text_minimal_tpu_torch.ops import ohem as OH
+
+    out = {}
+    for name, (v, kv) in k10_maps(S, *S.step_inputs()[2:]).items():
+        got, lo = OH.topk_select(v, kv)
+        lo_p = OH.bisection_lo(v, kv)
+        if not bool((lo == lo_p).item()):
+            raise AssertionError(f"k10 {name}: lo {lo.item()!r} against "
+                                 f"{lo_p.item()!r}")
+        err = abs(got.item() - OH.topk_sum_plain(v, kv).item())
+        if not err <= 1e-5 * OH.sum_scale(v, lo_p, kv):
+            raise AssertionError(f"k10 {name}: sum {err} apart")
+        dev_ms, split, ops = S.device_kernels(lambda: OH.topk_select(v, kv),
+                                              50)
+        out[name] = {"n": v.numel(), "err": err, "device_ms": dev_ms,
+                     "device_ops": ops,
+                     "ms": S.timed(lambda: OH.topk_select(v, kv), 50),
+                     "split": {S.short_name(key): ms
+                               for key, ms in split.items()}}
+    return out
+
+
 def measure(label: str, kernels: list[str]) -> dict:
     """The chosen kernels of the checkout in the working directory, on
     both inputs."""
@@ -122,13 +173,17 @@ def measure(label: str, kernels: list[str]) -> dict:
     import chip_smoke as S
     from db_text_minimal_tpu_torch.ops import cc
 
+    out = {"label": label, "root": os.getcwd()}
+    if "k10" in kernels:
+        out["k10"] = measure_k10(S)
+    if not set(kernels) - {"k10"}:
+        return out
     dev = torch.device("cuda")
     cc.load_library()
     scenes = torch.from_numpy(
         np.stack([S.kernel_scene(i) for i in range(S.N)])).to(dev)
     with tempfile.TemporaryDirectory() as workdir:
         _, _, preds, _ = S.phase_serve(workdir)
-    out = {"label": label, "root": os.getcwd()}
     for name, prob in (("scenes", scenes), ("served",
                                             preds[..., 0].contiguous())):
         mask = prob > 0.3
@@ -180,8 +235,8 @@ def main() -> int:
     parser.add_argument("other", nargs="?",
                         help="root of the checkout to compare with")
     parser.add_argument("--kernels", default="k4,k6,k5,k7",
-                        help="comma-separated, of k4, k6, k5, k7 (default "
-                        "all)")
+                        help="comma-separated, of k4, k6, k5, k7, k10 "
+                        "(default k4,k6,k5,k7)")
     parser.add_argument("--turns", type=int, default=2,
                         help="pairs of runs (default 2)")
     parser.add_argument("--one", metavar="LABEL",

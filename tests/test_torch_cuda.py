@@ -574,18 +574,26 @@ def test_db_tail_trains_the_head_on_the_card(device):
         torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4 * scale)
 
 
-def _ohem_maps(device, n=4 * 640 * 640):
+def _ohem_map(name, device, n=4 * 640 * 640):
     """Maps of tied values: clamped BCE at -log(1e-7) on 30 % of the
-    pixels, four values, and zeros."""
+    pixels, four values, zeros; a 32x640x640 map (52 MB, more than the
+    grid's shared memory holds) of clamped BCE and four values; and maps
+    smaller than one block's share of the grid."""
+    if name == "32x640x640":
+        return torch.cat([_ohem_map(part, device, 16 * 640 * 640)
+                          for part in ("clamped", "four")])
+    if name in ("one", "thousand"):
+        size = 1 if name == "one" else 1000
+        return torch.from_numpy(np.random.RandomState(13).rand(size)
+                                .astype(np.float32)).to(device)
     rs = np.random.RandomState(11)
     clamped = np.where(rs.rand(n) < 0.3, -np.log(np.float32(1e-7)),
                        rs.rand(n) * 2).astype(np.float32)
     four = rs.choice(np.float32([0.0, 0.1053, 0.6931, 16.118]), n)
-    return {"clamped": torch.from_numpy(clamped).to(device),
-            "four": torch.from_numpy(four).to(device),
-            "zeros": torch.zeros(n, device=device),
-            "odd": torch.from_numpy(rs.rand(1001).astype(np.float32)
-                                    ).to(device)}
+    maps = {"clamped": clamped, "four": four,
+            "zeros": np.zeros(n, np.float32),
+            "odd": rs.rand(1001).astype(np.float32)}
+    return torch.from_numpy(maps[name]).to(device)
 
 
 def _hold_k10(values, k):
@@ -596,20 +604,32 @@ def _hold_k10(values, k):
     assert torch.equal(lo, lo_p), (lo.item(), lo_p.item())
     ref = OH.topk_sum_plain(values, k).item()
     assert abs(out.item() - ref) <= 1e-5 * OH.sum_scale(values, lo_p, k)
+    return out, lo
 
 
 @pytest.mark.parametrize("k", [0.0, 1.0, 1234.5, 383_999.0, 384_000.0,
                                1e6, 1_638_400.0, 2e6])
-@pytest.mark.parametrize("name", ["clamped", "four", "zeros", "odd"])
+@pytest.mark.parametrize("name", ["clamped", "four", "zeros", "odd",
+                                  "32x640x640", "one", "thousand"])
 def test_topk_select_gives_the_bisection_lo(name, k, device):
     """lo bit-equal to the bisection's, the sum within 1e-5 of the size of
     its two terms (they cancel where values tie at lo: f64 against torch's
     f32), on tie-heavy maps, with k of 0, inside a run of ties, at and past
-    the count."""
-    values = _ohem_maps(device)[name]
-    _hold_k10(values, torch.tensor(k, device=device))
-    # an unaligned start (the scalar path)
-    _hold_k10(values[1:], torch.tensor(min(k, 500.0), device=device))
+    the count, on a map larger than the grid's shared memory and on maps
+    smaller than one block's share; then 50 calls on one scratch, filled
+    with ones at first, bit-equal to the first (the kernel zeroes its own
+    state)."""
+    values = _ohem_map(name, device)
+    kv = torch.tensor(k, device=device)
+    out, lo = _hold_k10(values, kv)
+    # an unaligned start (the scalar head)
+    if values.numel() > 1:
+        _hold_k10(values[1:], torch.tensor(min(k, 500.0), device=device))
+    scratch = torch.full((OH.load_library().ohem_state_bytes(),), 255,
+                         dtype=torch.uint8, device=device)
+    for _ in range(50):
+        again, lo_again = OH.topk_select(values, kv, state=scratch)
+        assert torch.equal(again, out) and torch.equal(lo_again, lo)
 
 
 def test_topk_select_on_a_train_step_loss_map(device):
@@ -644,7 +664,7 @@ def test_topk_select_on_a_train_step_loss_map(device):
 def test_train_step_launches_the_tail_and_k10(device):
     """One bf16 train step of the default configuration at 640x640, batch
     2: the tail's forward and backward and K10's select and gradient once
-    each, K1 and K2 never."""
+    each, K1 and K2 never; K10's select one device operation a call."""
     from db_text_minimal_tpu_torch.config import default_config
     from db_text_minimal_tpu_torch.data.scenes import text_batch
     from db_text_minimal_tpu_torch.train import trainer as T
@@ -665,6 +685,21 @@ def test_train_step_launches_the_tail_and_k10(device):
                           "db_step_backward": 0, "db_tail_forward": 1,
                           "db_tail_backward": 1}
     assert OH.LAUNCHES == {"ohem_topk_sum": 1, "ohem_topk_grad": 1}
+    # the select is one device operation a call: no memset, one kernel
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    values = _ohem_map("clamped", device)
+    kv = torch.tensor(1234.5, device=device)
+    OH.topk_select(values, kv)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            OH.topk_select(values, kv)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(ops) == 3 and all("k10_select" in name for name in ops), ops
 
 
 def test_cuda_tensors_never_reach_a_plain_version(device, monkeypatch):

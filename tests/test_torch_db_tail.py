@@ -287,6 +287,129 @@ def test_replay_past_2_24_from_a_synthetic_count(k):
     assert np.float32(got).tobytes() == np.float32(lo).tobytes()
 
 
+# k10_select's launch at small sizes: one block with everything staged;
+# three blocks that stage 16 words each and stream the rest, from a start
+# 4 bytes past a 16-byte boundary; more blocks than words
+LAUNCH_SHAPES = {
+    "one block, staged": dict(blocks=1, cap4=2048, head=0, threads=32),
+    "three blocks, streamed, unaligned": dict(blocks=3, cap4=16, head=1,
+                                              threads=8, run=3),
+    "seven blocks, two words each": dict(blocks=7, cap4=2, head=3,
+                                         threads=4, run=5),
+}
+
+
+def _hold_cooperative(values: np.ndarray, k: float, shape: dict) -> dict:
+    """The launch written out against the bisection: lo bit for bit, the
+    sum within 1e-5 of the size of its two terms, one bucket a pass."""
+    got = OH.cooperative_select(values, k, **shape)
+    v, kt = torch.from_numpy(values), torch.tensor(k, dtype=torch.float32)
+    lo = OH.bisection_lo(v, kt)
+    assert np.float32(got["lo"]).tobytes() == lo.numpy().tobytes()
+    ref = float(OH.topk_sum_plain(v, kt))
+    if np.isnan(ref):
+        assert np.isnan(got["out"])
+    else:
+        assert abs(float(got["out"]) - ref) <= 1e-5 * max(
+            OH.sum_scale(v, lo, kt), 1e-30)
+    # every block picks the same bucket from the merged bins
+    assert all(len(set(picks)) == 1 for picks in got["picks"])
+    return got
+
+
+@pytest.mark.parametrize("shape", sorted(LAUNCH_SHAPES))
+@pytest.mark.parametrize("case", sorted(_maps()))
+def test_cooperative_select_gives_the_bisection_lo(case, shape):
+    values, k = _maps()[case]
+    _hold_cooperative(values, k, LAUNCH_SHAPES[shape])
+
+
+@pytest.mark.parametrize("k", [1.0, 3000.0, 17_000.5])
+def test_cooperative_select_streams_what_shared_memory_misses(k):
+    """A map of 20,000 loss-like values (runs of zeros and of clamped BCE
+    among smooth values) over 4 blocks that stage 256 words each (4,096
+    values): most of each slice is read from device memory in every
+    sweep."""
+    rs = np.random.RandomState(7)
+    smooth = np.repeat(rs.rand(2500) * 2, 8)[:20_000]
+    runs = np.repeat(rs.randint(0, 3, 625), 32)
+    values = np.where(runs == 0, 0.0, np.where(
+        runs == 1, -np.log(np.float32(1e-7)), smooth)).astype(np.float32)
+    plan = OH.block_slices(values.size, 2, 4, 256, 16)
+    assert [p["staged"].size for p in plan] == [1024] * 4
+    assert sum(p["rest"].size for p in plan) == values.size - 4096
+    _hold_cooperative(values, k, dict(blocks=4, cap4=256, head=2,
+                                      threads=16))
+
+
+@pytest.mark.parametrize("n,head,blocks,cap4", [
+    (1, 0, 4, 8), (1, 3, 4, 8), (3, 1, 2, 1), (1000, 2, 132, 13976),
+    (4099, 3, 5, 7), (6000, 0, 3, 500)])
+def test_block_slices_take_each_value_once(n, head, blocks, cap4):
+    """Every value once; of each chunk of staged values a thread takes the
+    RUN consecutive ones from RUN * thread on (RUN odd: the 32 lanes'
+    loads hit 32 banks); a list's threads take contiguous runs of an odd
+    count."""
+    plan = OH.block_slices(n, head, blocks, cap4, threads=32)
+    idx = np.concatenate([np.r_[p["staged"], p["rest"]] for p in plan])
+    assert np.array_equal(np.sort(idx), np.arange(n))
+    assert OH.RUN % 2 == 1
+    for p in plan:
+        staged = p["staged"]
+        assert staged.size <= 4 * cap4
+        assert np.all(np.diff(staged) == 1)
+        if staged.size:
+            offset = (staged - staged[0]) % (OH.RUN * 32)
+            assert np.array_equal(offset // OH.RUN, p["staged_owner"])
+    for length in (1, 31, 32, 33, 1000):
+        owner = OH.list_owner(length, 32)
+        runs = np.bincount(owner)
+        assert owner.size == length and np.all(np.diff(owner) >= 0)
+        assert runs.size <= 32 and runs[0] % 2 == 1
+        assert np.all(runs[:-1] == runs[0]) and runs[-1] <= runs[0]
+    assert OH.list_owner(0, 32).size == 0
+
+
+def test_runs_flush_once_where_the_bin_changes():
+    """On a map of one value every thread adds one (bin, count) pair a
+    pass; on a map of 8 runs of 512 equal values, one a chunk (its values
+    of each chunk lie elsewhere) and one more at each run boundary it
+    crosses; on a map of random values nearly every value is a pair of its
+    own."""
+    shape = dict(blocks=2, cap4=4096, threads=32)
+    one = np.full(4096, 0.6931, np.float32)
+    plan = OH.block_slices(one.size, 0, 2, 4096, 32)
+    threads = sum(len(set(p["staged_owner"].tolist())) for p in plan)
+    got = _hold_cooperative(one, 100.0, shape)
+    listed = sum(len(set(OH.list_owner(size, 32).tolist()))
+                 for size in got["lists"])
+    assert got["atomics"] == [threads, listed, listed]
+    runs = np.repeat(np.float32([3.0, 0.5, 9.0, 0.0, 1.5, 0.25, 6.0, 0.1]),
+                     512)
+    got = _hold_cooperative(runs, 700.0, shape)
+    chunks = -(-runs.size // (OH.RUN * 32))
+    assert got["atomics"][0] <= chunks * threads + 8
+    noise = np.random.RandomState(1).rand(4096).astype(np.float32)
+    got = _hold_cooperative(noise, 700.0, shape)
+    assert got["atomics"][0] > 0.5 * noise.size
+
+
+@pytest.mark.parametrize("case,source", [
+    ("random", "list"), ("clamped BCE", "list"), ("k 0", "staged"),
+    ("k past the count", "staged"), ("all zero", "device memory"),
+    ("tiny values", "device memory")])
+def test_the_sum_reads_the_list_when_it_holds_every_value_above_lo(
+        case, source):
+    """The sum reads the list where every value left out of it is at most
+    lo; the staged values where no list was made (k of 0, k past the
+    count); the slice in device memory again where lo lies below the
+    pass-0 bucket (v = 0 in a map of zeros; tiny values, whose bracket
+    after 34 rounds is wider than they are)."""
+    values, k = _maps()[case]
+    got = _hold_cooperative(values, k, LAUNCH_SHAPES["one block, staged"])
+    assert got["source"] == source
+
+
 @pytest.mark.parametrize("case", ["ties at kk", "k 0", "k past the count",
                                   "all zero", "one value", "clamped BCE"])
 def test_topk_sum_matches_jax_with_its_gradient(case):
