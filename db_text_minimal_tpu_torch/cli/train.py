@@ -7,7 +7,14 @@ time>`` (None when ``torch.utils.tensorboard`` does not import, as in JAX),
 and runs ``Trainer.fit``, the epoch loop with its per-epoch eval and three
 checkpoints. ``--resume`` restores a checkpoint's whole training state;
 ``--profile_dir`` records the first epoch with ``torch.profiler``
-(``utils/profiling.trace``) before ``fit`` runs its epochs, as in JAX. The
+(``utils/profiling.trace``) before ``fit`` runs its epochs, as in JAX. Its
+Chrome trace (``trace_<pid>.json``, open it in Perfetto) holds, beside the
+host's operators and the card's kernels, the process "program spans": each
+step's ``train.step`` over ``train.preprocess``, ``train.forward``,
+``train.loss``, ``train.backward`` and ``train.optimizer`` on the
+profiler's clock, each with its device time (``device_ms``) and the step's
+number, so each phase sits above the kernels it launched and each idle gap
+of the card under what the host was doing. The
 model runs on ``--device``, CUDA by default; the CPU must be asked for by
 name.
 

@@ -16,6 +16,7 @@ import torch
 
 from .ops import geometry as geo
 from .ops.cc import device_boxes, device_poly_stats
+from .utils import profiling as P
 
 
 class DeviceBoxRepresenter:
@@ -40,7 +41,13 @@ class DeviceBoxRepresenter:
     def __call__(self, batch: dict, pred: torch.Tensor,
                  is_output_polygon: bool = False):
         """``pred``: NHWC (channel 0 is the prob map) or (N, H, W) tensor on
-        the device that runs the postprocess."""
+        the device that runs the postprocess. While ``torch.profiler``
+        records: the spans ``serve.device_boxes`` (K3–K6's launch),
+        ``serve.boxes_to_host`` (the wait for the records) and
+        ``serve.unclip`` (``finish_device_rects`` over the batch), and the
+        counters ``serve.rects_in`` (records kept on the device, which the
+        host finishes) and ``serve.boxes_out`` (boxes after the unclip and
+        the size filter)."""
         if is_output_polygon:
             raise ValueError("DeviceBoxRepresenter gives rect mode only; "
                              "polygon mode runs in DevicePolyRepresenter "
@@ -48,20 +55,25 @@ class DeviceBoxRepresenter:
         if pred.dim() == 4:
             pred = pred[..., 0]
         height, width = pred.shape[1], pred.shape[2]
-        corners, scores, keep = device_boxes(
-            pred, thresh=self.thresh, box_thresh=self.box_thresh,
-            min_size=self.min_size, max_components=self.max_candidates)
-        corners, scores, keep = (t.cpu().numpy() for t in
-                                 (corners, scores, keep))
+        with P.span("serve.device_boxes"):
+            corners, scores, keep = device_boxes(
+                pred, thresh=self.thresh, box_thresh=self.box_thresh,
+                min_size=self.min_size, max_components=self.max_candidates)
+        with P.span("serve.boxes_to_host"):
+            corners, scores, keep = (t.cpu().numpy() for t in
+                                     (corners, scores, keep))
         boxes_batch, scores_batch = [], []
-        for i in range(corners.shape[0]):
-            dest_h, dest_w = batch["shape"][i]
-            boxes, kept_scores = finish_device_rects(
-                corners[i][keep[i]], scores[i][keep[i]], width, height,
-                dest_w, dest_h, unclip_ratio=self.unclip_ratio,
-                min_size=self.min_size)
-            boxes_batch.append(boxes)
-            scores_batch.append(kept_scores)
+        with P.span("serve.unclip"):
+            P.count("serve.rects_in", keep.sum())
+            for i in range(corners.shape[0]):
+                dest_h, dest_w = batch["shape"][i]
+                boxes, kept_scores = finish_device_rects(
+                    corners[i][keep[i]], scores[i][keep[i]], width, height,
+                    dest_w, dest_h, unclip_ratio=self.unclip_ratio,
+                    min_size=self.min_size)
+                boxes_batch.append(boxes)
+                scores_batch.append(kept_scores)
+            P.count("serve.boxes_out", sum(len(b) for b in boxes_batch))
         return boxes_batch, scores_batch
 
 

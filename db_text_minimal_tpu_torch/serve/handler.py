@@ -43,6 +43,7 @@ from ..cli.common import (INFER_MODES, load_model, load_state_dict,
                           make_folded_forward)
 from ..postprocess import DeviceBoxRepresenter
 from ..utils import CAFFE_MEAN, resolve_device, test_resize
+from ..utils import profiling as P
 
 
 class DBTextDetectionHandler:
@@ -67,6 +68,7 @@ class DBTextDetectionHandler:
         self._forward_prob = None   # prob-only forward for box mode
         self._prob_only = False     # a prob-only export: no thresh map
         self.initialized = forward is not None
+        self.calls = 0              # inference calls: the id of a call
 
     def initialize(self) -> None:
         if self.model_path.endswith(".pt2"):
@@ -89,9 +91,11 @@ class DBTextDetectionHandler:
             def forward(batch: np.ndarray) -> torch.Tensor:
                 # uint8 upload; the mean is subtracted on the device (4x
                 # less host-to-device traffic than float32)
-                x = torch.from_numpy(np.ascontiguousarray(batch)).to(
-                    self.device)
-                return fwd(x.float() - mean)
+                with P.span("serve.upload"):
+                    x = torch.from_numpy(np.ascontiguousarray(batch)).to(
+                        self.device)
+                with P.span("serve.forward"):
+                    return fwd(x.float() - mean)
             return forward
 
         self._forward = on_device(maps)
@@ -128,10 +132,15 @@ class DBTextDetectionHandler:
     def inference(self, img: np.ndarray, prob_only: bool = False
                   ) -> torch.Tensor:
         """The maps of a uint8 batch; ``prob_only`` takes the folded
-        modes' prob-only forward (the flax mode has none)."""
-        if prob_only and self._forward_prob is not None:
-            return self._forward_prob(img)
-        return self._forward(img)
+        modes' prob-only forward (the flax mode has none). While
+        ``torch.profiler`` records, the span ``serve.inference`` (its id
+        the call's number), over ``serve.upload`` and ``serve.forward`` in
+        the folded and flax modes."""
+        self.calls += 1
+        with P.span("serve.inference", self.calls):
+            if prob_only and self._forward_prob is not None:
+                return self._forward_prob(img)
+            return self._forward(img)
 
     def postprocess(self, data: torch.Tensor) -> list[dict]:
         """Maps ×255 as JSON-able nested lists."""
@@ -163,13 +172,17 @@ class DBTextDetectionHandler:
         """Box mode: ``DeviceBoxRepresenter`` on the maps' device (one
         batched pass: threshold -> connected components -> oriented
         min-rects), then the exact host unclip of the K kept rects per
-        image, in canvas coordinates."""
+        image, in canvas coordinates. While ``torch.profiler`` records, the
+        span ``serve.postprocess`` (the id of the last ``inference`` call)
+        over the representer's spans and ``serve.to_lists``."""
         n, height, width = data.shape[:3]
-        boxes, scores = self.box_representer(
-            {"shape": [(height, width)] * n}, data)
-        return [{"boxes": [np.asarray(q, float).tolist() for q in b],
-                 "scores": s.astype(float).tolist()}
-                for b, s in zip(boxes, scores)]
+        with P.span("serve.postprocess", self.calls):
+            boxes, scores = self.box_representer(
+                {"shape": [(height, width)] * n}, data)
+            with P.span("serve.to_lists"):
+                return [{"boxes": [np.asarray(q, float).tolist() for q in b],
+                         "scores": s.astype(float).tolist()}
+                        for b, s in zip(boxes, scores)]
 
     def handle(self, request: list[dict[str, Any]], mode: str = "masks"):
         if not self.initialized:

@@ -52,8 +52,8 @@ from ..metrics import QuadMetric, RunningScore
 from ..models import DBTextModel
 from ..models.prune import widths_to_model_kwargs
 from ..postprocess import DeviceBoxRepresenter, SegDetectorRepresenter
-from ..utils import (CAFFE_MEAN, StepTimer, resolve_device, setup_determinism,
-                     setup_logger)
+from ..utils import CAFFE_MEAN, resolve_device, setup_determinism, setup_logger
+from ..utils import profiling as P
 from ..utils.visualize import visualize_tfb
 from .checkpoints import CheckpointPolicy, load_params_any, restore_checkpoint
 
@@ -242,32 +242,49 @@ def build_train_step(cfg):
     ``state`` in place; the gradients stay in the parameters' ``.grad``
     until the next step. With ``state.ddp`` in a group of more than one,
     the loss, the histogram and the preds returned are the global batch's
-    (``parallel.gather_batch``)."""
+    (``parallel.gather_batch``).
+
+    While ``torch.profiler`` records, a step is the span ``train.step``
+    (its id the step's number, ``state.step`` after it) over the spans
+    ``train.preprocess``, ``train.forward``, ``train.loss``,
+    ``train.backward`` and ``train.optimizer`` (Adam), each with its
+    device time on CUDA (``utils/profiling``); ``set_lr``, ``zero_grad``
+    (which launches nothing) and the confusion histogram are the step's
+    remainder."""
     alpha = float(cfg.optimizer.alpha)
     settings = _loss_settings(cfg)
     score_thresh = float(cfg.metric.thred_text_score)
 
     def train_step(state: TrainState, batch: dict, lr: float):
-        batch = device_preprocess(batch)
-        model, optimizer = state.model, state.optimizer
-        model.train()
-        set_lr(optimizer, lr)
-        optimizer.zero_grad(set_to_none=True)
-        net = model if state.ddp is None else state.ddp
-        preds = net(batch["img"])
-        if state.ddp is not None and parallel.world_size() > 1:
-            preds = parallel.gather_batch(preds)
-            batch = {k: parallel.gather_batch(v) for k, v in batch.items()
-                     if k != "img"}
-        out = L.db_loss(preds, batch["prob_map"], batch["supervision_mask"],
-                        batch["thresh_map"], batch["text_area_map"],
-                        alpha=alpha, **settings)
-        out.total_loss.backward()
-        optimizer.step()
-        preds = preds.detach()
-        hist = confusion_hist_2x2(preds[..., 0], batch["prob_map"],
-                                  batch["supervision_mask"], score_thresh)
-        state.step += 1
+        device = batch["img"].device
+        with P.span("train.step", state.step + 1, device):
+            with P.span("train.preprocess", device=device):
+                batch = device_preprocess(batch)
+            model, optimizer = state.model, state.optimizer
+            model.train()
+            set_lr(optimizer, lr)
+            optimizer.zero_grad(set_to_none=True)
+            net = model if state.ddp is None else state.ddp
+            with P.span("train.forward", device=device):
+                preds = net(batch["img"])
+                if state.ddp is not None and parallel.world_size() > 1:
+                    preds = parallel.gather_batch(preds)
+                    batch = {k: parallel.gather_batch(v)
+                             for k, v in batch.items() if k != "img"}
+            with P.span("train.loss", device=device):
+                out = L.db_loss(preds, batch["prob_map"],
+                                batch["supervision_mask"],
+                                batch["thresh_map"], batch["text_area_map"],
+                                alpha=alpha, **settings)
+            with P.span("train.backward", device=device):
+                out.total_loss.backward()
+            with P.span("train.optimizer", device=device):
+                optimizer.step()
+            preds = preds.detach()
+            hist = confusion_hist_2x2(preds[..., 0], batch["prob_map"],
+                                      batch["supervision_mask"],
+                                      score_thresh)
+            state.step += 1
         return state, L.DBLossOutput(*(v.detach() for v in out)), hist, preds
 
     return train_step
@@ -420,13 +437,14 @@ class Trainer:
     def train_epoch(self, state: TrainState, epoch: int):
         """One pass over ``train_loader``. Returns (state, mean total loss,
         RunningScore, (last batch, its preds)). ``epoch_timing`` then holds
-        the epoch's wall seconds and the seconds the loop waited on the
-        loader for a batch."""
+        the epoch's wall seconds, which end in a synchronisation (the mean
+        loss's read), and the seconds the loop waited on the loader for a
+        batch; ``TRAIN/HPs/images_per_sec`` is the epoch's images over its
+        wall seconds."""
         cfg = self.cfg
         dev = self.device
         running = RunningScore(int(cfg.hps.no_classes))
-        timer = StepTimer(warmup=1)
-        n_batches = 0
+        n_batches = n_images = 0
         last = (None, None)
         log_iter = int(cfg.hps.log_iter)
         loss_sum = torch.zeros((), device=dev)
@@ -474,19 +492,19 @@ class Trainer:
                 state, to_device(batch, dev), lr)
             loss_sum += loss_out.total_loss
             hist_sum += hist
-            timer.tick(batch["img"].shape[0])
+            n_images += batch["img"].shape[0]
             last = (batch, preds)
             pending.append((self.global_step, lr, loss_out))
             if self.global_step % log_iter == 0:
                 flush()
         flush(final=True)
-        train_loss = float(loss_sum)
-        self.epoch_timing = {"wall_s": time.perf_counter() - t_epoch,
-                             "loader_wait_s": wait}
-        if timer.images_per_sec > 0:
-            self.logger.info("throughput: %.1f img/s", timer.images_per_sec)
+        train_loss = float(loss_sum)   # waits for the epoch's last step
+        wall = time.perf_counter() - t_epoch
+        self.epoch_timing = {"wall_s": wall, "loader_wait_s": wait}
+        if n_images:
+            self.logger.info("throughput: %.1f img/s", n_images / wall)
             self._scalars(self.global_step, {
-                "TRAIN/HPs/images_per_sec": timer.images_per_sec})
+                "TRAIN/HPs/images_per_sec": n_images / wall})
         return state, train_loss / max(n_batches, 1), running, last
 
     # ------------------------------------------------------------------

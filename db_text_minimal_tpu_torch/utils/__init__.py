@@ -3,8 +3,8 @@ box drawing, device selection, seeding, logging and a call timer.
 
 Counterpart of ``db_text_minimal_tpu/utils/__init__.py`` and of
 ``filter_zero_boxes`` in ``utils/visualize.py``. The overlays are in
-``utils/visualize.py``, the profiler trace and ``StepTimer`` (re-exported
-here) in ``utils/profiling.py``. The Caffe means
+``utils/visualize.py``, the profiler trace and the program's spans and
+counters in ``utils/profiling.py``. The Caffe means
 ``[103.939, 116.779, 123.68]`` are subtracted from images in RGB channel
 order, exactly as the reference does (BGR means applied to RGB data); the
 quirk is kept for checkpoint parity.
@@ -20,8 +20,6 @@ import time
 
 import numpy as np
 import torch
-
-from .profiling import StepTimer  # noqa: F401  (re-exported)
 
 CAFFE_MEAN = (103.939, 116.779, 123.68)
 

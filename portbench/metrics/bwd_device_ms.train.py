@@ -1,0 +1,13 @@
+"""bwd_device_ms.train: the device time a training step of the port's span
+``train.backward`` (the backward of the total loss), from the two CUDA
+events the port records around it, averaged over the steps of the
+device-only pass (``core/program_spans``). None where the port recorded no
+such span."""
+
+from portbench.core.program_spans import phase_device_ms
+
+PHASE = "train.backward"
+
+
+def read(view):
+    return phase_device_ms(view, PHASE)
